@@ -7,7 +7,7 @@ Run from the root of a checkout.  Phases, in order; any failure raises and
 the exit code is nonzero:
 
 [env]     Python, torch, CUDA; the card's name and power limit; TF32 off.
-[build]   the nvcc build of every kernel on the main path.
+[build]   the nvcc build of every kernel source, all started together.
 [matmul]  the fused-dense kernel against its plain version on the card, at
           the main path's four shapes and a few others; times from CUDA
           events, and the least time the card could take (bound_ms).
@@ -16,6 +16,19 @@ the exit code is nonzero:
           synthetic MNIST: 468 steps of 128, then evaluation), its kernel
           launch count, loss and accuracy; then one training step from the
           same state on the card and on the CPU.
+[flash]   the three flash-attention kernels (forward, dK/dV, dQ) against
+          their plain versions on the card: the LM path's shape (q, k, v
+          (16, 12, 1024, 64) bfloat16, causal), float32, windowed and ragged
+          cases; each kernel's time beside its bound, its plain version's
+          and, for the forward and forward + backward, the time of
+          ``scaled_dot_product_attention`` on the same inputs.
+[lm]      ``LMTrainer.fit`` of the GPT-2-small-class TransformerLM (vocab
+          32768, dim 768, depth 12, heads 12, rope, seq 1024, global batch
+          16, bfloat16 compute) with TPU_DIST_FLASH=1 for two epochs, its
+          flash launch counts (12 of each kernel per step), tokens/s and
+          losses; the kernels' share of a profiled step; then one step of a
+          small LM on the card and on the CPU, losses and gradients
+          compared.
 
 Then one JSON line per kernel, the card's name and power limit, and the
 result line.  Without a CUDA device it exits nonzero before printing any
@@ -24,6 +37,7 @@ result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -31,15 +45,17 @@ import platform
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 F32_TOL = dict(rtol=1e-4, atol=1e-4)  # float32 sums in another order
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)  # one bf16 rounding of the output
-# H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s by operand type
-# (float32 outside the tensor cores, bf16 on them).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# Bounds are taken against this card's published dense peaks (H100 SXM at
+# 700 W, `tpu_dist_torch.train.flops.PEAKS`): HBM bytes/s, and FLOP/s by
+# operand type (float32 outside the tensor cores, bf16 on them).
+PEAK_CARD = "NVIDIA H100 80GB HBM3"
+SOURCES = ("matmul", "flash_attention")  # csrc/<name>.cu
 
 
 def check(ok: bool, what: str) -> None:
@@ -84,9 +100,11 @@ def time_ms(fn, iters: int, *, graph: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: int, flops: int, dtype: torch.dtype) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+def bound(nbytes: int, n_ops: float, dtype: torch.dtype) -> tuple[float, str]:
+    from tpu_dist_torch.train import flops  # the port: absent when this script stands alone
+
+    t_bytes = nbytes / flops.peak_bytes_per_s(PEAK_CARD)
+    t_ops = n_ops / flops.peak_flops(PEAK_CARD, dtype)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -248,6 +266,270 @@ def main_path(device, ops, card_name) -> dict:
     return {"launches": launches}
 
 
+FLASH_REPLACES = {
+    "flash_fwd": "tpu_dist/ops/flash_attention.py:47",
+    "flash_dkv": "tpu_dist/ops/flash_attention.py:184",
+    "flash_dq": "tpu_dist/ops/flash_attention.py:233",
+}
+# one attention call of the [lm] path: (batch, heads, S, head_dim)
+LM_ATTENTION = (16, 12, 1024, 64)
+
+
+def visible_fraction(S: int, causal: bool, window, flops, fa) -> float:
+    """The share of the (S, S) scores the kernels compute: the causal
+    fraction of `train.flops.attention_flops`, or the band's own count."""
+    if window is None:
+        return (flops.attention_flops(1, 1, S, S, 1, causal=causal)
+                / flops.attention_flops(1, 1, S, S, 1))
+    return fa.visible_mask(S, causal=causal, window=window).float().mean().item()
+
+
+def flash_cases(device, fa, F, flops) -> list[dict]:
+    """Each flash kernel against its plain version on the same inputs: the
+    forward's out and lse, then dK/dV and dQ from the plain forward's lse
+    and D = rowsum(dO * out).  Times are CUDA events around eager launches
+    (each launch runs for milliseconds, far above its launch cost).  The
+    bound of each kernel is its own products at the operand type's peak
+    against its bytes: 2 products forward, 4 for dK/dV (it recomputes P), 3
+    for dQ, each 2*bh*S*S*d times the visible fraction."""
+    cases = [
+        ("lm", LM_ATTENTION, torch.bfloat16, True, None),  # every [lm] call
+        ("f32", LM_ATTENTION, torch.float32, True, None),
+        ("window", LM_ATTENTION, torch.bfloat16, True, 256),
+        ("dense", (2, 12, 1024, 64), torch.float32, False, None),
+        ("ragged", (2, 3, 96, 8), torch.float32, True, 40),
+    ]
+    gen = torch.Generator(device).manual_seed(1)
+    rows = []
+    for label, (b, h, S, d), dtype, causal, window in cases:
+        bh = b * h
+        q, k, v, go = (torch.randn(bh, S, d, generator=gen, device=device).to(dtype)
+                       for _ in range(4))
+        kw = dict(causal=causal, window=window)
+        out, lse = fa.flash_fwd(q, k, v, **kw)
+        want_out, want_lse = fa.flash_fwd_reference(q, k, v, **kw)
+        delta = (go.float() * want_out.float()).sum(-1)
+        dk, dv = fa.flash_dkv(q, k, v, go, want_lse, delta, **kw)
+        want_dk, want_dv = fa.flash_dkv_reference(q, k, v, go, want_lse, delta, **kw)
+        dq = fa.flash_dq(q, k, v, go, want_lse, delta, **kw)
+        want_dq = fa.flash_dq_reference(q, k, v, go, want_lse, delta, **kw)
+        torch.cuda.synchronize()
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        pairs = {"flash_fwd": [(out, want_out), (lse, want_lse)],
+                 "flash_dkv": [(dk, want_dk), (dv, want_dv)],
+                 "flash_dq": [(dq, want_dq)]}
+        errs = {}
+        for name, checks in pairs.items():
+            for got, want in checks:
+                torch.testing.assert_close(got, want, **(F32_TOL if got is lse else tol))
+            errs[name] = max((g.float() - w.float()).abs().max().item() for g, w in checks)
+
+        product = 2 * bh * S * S * d * visible_fraction(S, causal, window, flops, fa)
+        block, row = bh * S * d * q.element_size(), bh * S * 4
+        work = {"flash_fwd": (4 * block + row, 2 * product),
+                "flash_dkv": (6 * block + 2 * row, 4 * product),
+                "flash_dq": (5 * block + 2 * row, 3 * product)}
+        q4, k4, v4, go4 = (t.view(b, h, S, d) for t in (q, k, v, go))
+        mask = fa.visible_mask(S, causal=causal, window=window, device=device)
+        library_kw = (dict(is_causal=causal) if window is None else dict(attn_mask=mask))
+        library = lambda: F.scaled_dot_product_attention(q4, k4, v4, **library_kw)  # noqa: E731
+        calls = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                          lambda: fa.flash_fwd_reference(q, k, v, **kw), library),
+            "flash_dkv": (lambda: fa.flash_dkv(q, k, v, go, want_lse, delta, **kw),
+                          lambda: fa.flash_dkv_reference(q, k, v, go, want_lse, delta, **kw),
+                          None),
+            "flash_dq": (lambda: fa.flash_dq(q, k, v, go, want_lse, delta, **kw),
+                         lambda: fa.flash_dq_reference(q, k, v, go, want_lse, delta, **kw),
+                         None),
+        }
+        iters = 10 if S >= 1024 else 50
+        shape = {"case": label, "q": [b, h, S, d], "dtype": str(dtype)[6:],
+                 "causal": causal, "window": window}
+        for name, (kernel, plain, lib) in calls.items():
+            bound_ms, bound_by = bound(*work[name], dtype)
+            rows.append({
+                "kernel": name, **shape, "max_abs_err": errs[name], "tol": tol,
+                "timing": f"CUDA events around {iters} eager launches",
+                "ms": time_ms(kernel, iters, graph=False),
+                "plain_ms": time_ms(plain, iters, graph=False),
+                "library_ms": None if lib is None else time_ms(lib, iters, graph=False),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            })
+            print("[flash]", json.dumps(rows[-1]), flush=True)
+
+        # forward + backward through the autograd Function (its D and the
+        # cast of dO included) against SDPA's forward + backward
+        leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+        blocks = min(256, S)
+
+        def port_step():
+            o = fa.flash_attention(*leaves, causal=causal, window=window, bq=blocks, bk=blocks)
+            return torch.autograd.grad(o, leaves, go4)
+
+        def library_step():
+            o = F.scaled_dot_product_attention(*leaves, **library_kw)
+            return torch.autograd.grad(o, leaves, go4)
+
+        def plain_step():
+            o, m = fa.flash_fwd_reference(q, k, v, **kw)
+            dd = (go.float() * o.float()).sum(-1)
+            fa.flash_dkv_reference(q, k, v, go, m, dd, **kw)
+            return fa.flash_dq_reference(q, k, v, go, m, dd, **kw)
+
+        # reads q, k, v, dO and writes out, dq, dk, dv; 9 products in all
+        bound_ms, bound_by = bound(8 * block, sum(w[1] for w in work.values()), dtype)
+        rows.append({
+            "kernel": "flash fwd+bwd", **shape, "timing": f"CUDA events around {iters} "
+            "eager forward + backward calls",
+            "ms": time_ms(port_step, iters, graph=False),
+            "plain_ms": time_ms(plain_step, iters, graph=False),
+            "library_ms": time_ms(library_step, iters, graph=False),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        print("[flash]", json.dumps(rows[-1]), flush=True)
+        del q, k, v, go, want_out, want_lse, dk, dv, dq, want_dk, want_dv, want_dq, leaves
+        torch.cuda.empty_cache()
+    return rows
+
+
+def profile_steps(trainer, tokens, steps: int, card_name: str) -> dict:
+    """Device time by kernel over a few training steps, from
+    ``torch.profiler``, summed by kind of kernel (by name); the flash
+    kernels' share of it, and the share of the profiled steps' wall time
+    the card was busy (the profiler slows the host, so this share is a
+    floor)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(tokens)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    if device_us == 0:
+        print("[lm] profile: no device time recorded; kernel shares not measured", flush=True)
+        return {"device_us": None}
+    kinds = {"flash": ("flash_",), "matmul": ("gemm", "nvjet", "cutlass", "sm90_xmma"),
+             "elementwise": ("elementwise", "copy"), "reduce": ("reduce",),
+             "softmax": ("softmax",)}
+    by_kind = dict.fromkeys([*kinds, "other"], 0.0)
+    for e in kernels:
+        kind = next((k for k, tags in kinds.items()
+                     if any(t in e.key.lower() for t in tags)), "other")
+        by_kind[kind] += e.self_device_time_total / steps / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    out = {
+        "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+        "device_ms_per_step": device_us / steps / 1e3,
+        "device_ms_per_step_by_kind": by_kind,
+        "flash_share_of_device_time": by_kind["flash"] * steps * 1e3 / device_us,
+        "device_busy_share_of_wall": device_us / wall_us,
+        "card": card_name,
+        "top_kernels": [{"name": e.key[:120], "ms_per_step": e.self_device_time_total
+                         / steps / 1e3, "calls_per_step": e.count / steps} for e in top],
+    }
+    print("[lm] profile", json.dumps(out), flush=True)
+    return out
+
+
+def lm_step_flops(flops, batch, seq, dim, depth, heads, vocab) -> float:
+    """Model FLOPs of one training step: the products of every block (qkv,
+    out, two MLP layers), causal attention and the tied head, forward and
+    backward (3x forward)."""
+    tokens = batch * seq
+    block = (flops.linear_flops(tokens, dim, 3 * dim) + flops.linear_flops(tokens, dim, dim)
+             + 2 * flops.linear_flops(tokens, dim, 4 * dim)
+             + flops.attention_flops(batch, heads, seq, seq, dim // heads, causal=True))
+    return flops.train_step_flops_estimate(depth * block + flops.linear_flops(tokens, dim, vocab))
+
+
+def lm_path(device, fa, card_name) -> dict:
+    from tpu_dist_torch import models
+    from tpu_dist_torch.train import LMTrainConfig, LMTrainer, flops
+
+    os.environ["TPU_DIST_FLASH"] = "1"
+    depth, steps_per_epoch, epochs, batch, seq = 12, 8, 2, 16, 1024
+    lm = models.TransformerLM(vocab=32768, dim=768, depth=depth, heads=12, max_seq=seq,
+                              pos_embedding="rope", generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in lm.parameters())
+    trainer = LMTrainer(lm, LMTrainConfig(global_batch=batch, compute_dtype="bfloat16",
+                                          log=lambda line: print("[lm]", line, flush=True)),
+                        device=device)
+    windows = models.synthetic_tokens(batch * steps_per_epoch, seq, 32768)
+    print(f"[lm] LMTrainer.fit: TransformerLM vocab 32768, dim 768, depth {depth}, heads 12, "
+          f"rope, {n_params} params; seq {seq}, global batch {batch}, bfloat16 compute, "
+          f"TPU_DIST_FLASH=1; {epochs} epochs of {steps_per_epoch} steps", flush=True)
+    counters = (fa.flash_fwd, fa.flash_dkv, fa.flash_dq)
+    for kernel in counters:
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    history = trainer.fit(windows, epochs=epochs)
+    wall = time.perf_counter() - t0
+    launches = {kernel.__name__: kernel.launches for kernel in counters}
+    steps = epochs * steps_per_epoch
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    step_flops = lm_step_flops(flops, batch, seq, 768, depth, 12, 32768)
+    peak = flops.peak_flops(PEAK_CARD, torch.bfloat16)
+    for stats in history:
+        rate = step_flops * steps_per_epoch / stats.seconds
+        print(f"[lm] epoch {stats.epoch}: mean loss {stats.mean_loss}, "
+              f"{stats.tokens_per_sec} tokens/s, {stats.seconds} s, {rate / 1e12} model "
+              f"TFLOP/s ({step_flops / 1e12} TFLOP per step), {rate / peak} of the bf16 "
+              f"peak, on {card_name}", flush=True)
+    print(f"[lm] fit wall time {wall} s; peak device memory {peak_gb} GB; flash launches "
+          f"{launches} (expected {depth} x {steps} steps = {depth * steps} each)", flush=True)
+    for name, n in launches.items():
+        check(n == depth * steps, f"{name} launched {n} times, not {depth * steps}")
+    check(all(math.isfinite(s.mean_loss) for s in history), "non-finite epoch loss")
+    check(history[1].mean_loss < history[0].mean_loss,
+          f"epoch 1 mean loss {history[1].mean_loss} not below epoch 0's "
+          f"{history[0].mean_loss}")
+    tokens = trainer._to_device(windows[:batch].numpy())
+    profile = profile_steps(trainer, tokens, 3, card_name)
+    del trainer, lm
+    torch.cuda.empty_cache()
+
+    # One step from identical state, card against CPU, at a small size.
+    small = dict(vocab=512, dim=128, depth=2, heads=2, max_seq=256, pos_embedding="rope")
+    pair = [LMTrainer(models.TransformerLM(**small, generator=torch.Generator().manual_seed(1)),
+                      LMTrainConfig(global_batch=2, log=lambda line: None), device=dev)
+            for dev in (device, "cpu")]
+    tokens = models.synthetic_tokens(2, 256, 512, seed=3)
+    loss_card = pair[0].loss_and_grads(tokens.to(device)).item()
+    loss_cpu = pair[1].loss_and_grads(tokens).item()
+    grad_diff = 0.0
+    for name, p in pair[0].params.items():
+        want = pair[1].params[name].grad
+        # float32 sums in another order on each side, through a 512-way
+        # softmax and two blocks
+        torch.testing.assert_close(p.grad.cpu(), want, rtol=1e-3, atol=1e-5)
+        grad_diff = max(grad_diff, (p.grad.cpu() - want).abs().max().item())
+    print(f"[lm] one step of a small LM (vocab 512, dim 128, depth 2, heads 2, seq 256, "
+          f"batch 2, float32, TPU_DIST_FLASH=1): loss card {loss_card} cpu {loss_cpu} "
+          f"|diff| {abs(loss_card - loss_cpu)}; gradients max |diff| {grad_diff}", flush=True)
+    check(abs(loss_card - loss_cpu) <= 1e-5, "card and CPU losses differ by more than 1e-5")
+    return {"launches": launches, "history": history, "profile": profile}
+
+
+def build_all(_build) -> None:
+    """One nvcc per source, all started together."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        builds = list(pool.map(_build.build, SOURCES))
+    for built in builds:
+        if built.command is None:
+            print(f"[build] {built.path} already built", flush=True)
+            continue
+        print(f"[build] {' '.join(built.command)}  {built.seconds:.1f}s", flush=True)
+        for line in built.log.splitlines():
+            print(f"[build]   {line.strip()}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this check needs "
@@ -257,6 +539,9 @@ def main() -> None:
 
     from tpu_dist_torch import ops
     from tpu_dist_torch.ops import _build
+    from tpu_dist_torch.train import flops
+
+    fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -269,16 +554,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print("[env] TF32 off for matmul and cuDNN (float32 computed in float32)", flush=True)
 
-    built = _build.build("matmul")
-    if built.command is None:
-        print(f"[build] {built.path} already built", flush=True)
-    else:
-        print(f"[build] {' '.join(built.command)}  {built.seconds:.1f}s", flush=True)
-        for line in built.log.splitlines():
-            print(f"[build]   {line.strip()}", flush=True)
+    build_all(_build)
 
     rows = matmul_cases(device, ops, F)
     launches = main_path(device, ops, card_name)["launches"]
+    flash_rows = flash_cases(device, fa, F, flops)
+    lm = lm_path(device, fa, card_name)
 
     step = rows[:2]  # the two launches of one training step
     kernel = {
@@ -297,7 +578,19 @@ def main() -> None:
         "work": "one training step's two launches: 128x320x50 + 128x50x10 (MxKxN), "
                 "float32, epilogue none",
     }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    kernels = [kernel]
+    for name, replaces in FLASH_REPLACES.items():
+        row = next(r for r in flash_rows if r["kernel"] == name and r["case"] == "lm")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tpu_dist_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": lm["launches"][name],
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+            "work": "one attention call of the [lm] path: q, k, v (16, 12, 1024, 64) "
+                    "bfloat16, causal; 12 calls per training step",
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card_and_power_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,
                                              "count": 1}}), flush=True)

@@ -1,16 +1,22 @@
-"""The fused-dense CUDA kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card: fused dense,
+and the three flash-attention kernels (forward, dK/dV, dQ).
 
-These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
+These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one.  They import neither jax nor the JAX package, so they run on a
 machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
 
+import importlib
+
 import pytest
 import torch
 
 from tpu_dist_torch.ops import fused_dense, matmul, matmul_reference
+
+# the module (the package exports its function of the same name)
+fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -78,3 +84,99 @@ def test_wrapper_refuses_bad_input(card):
         fused_dense(x.half(), w.half(), b.half())
     with pytest.raises(ValueError, match="bias"):
         fused_dense(x, w, b[:4].contiguous())
+
+
+# ---------------------------------------------------------------- flash
+
+# (causal, window): dense, causal, the causal band, and the one-sided band
+MASKS = [(False, None), (True, None), (True, 40), (False, 40)]
+FLASH_SHAPES = [(2, 64), (2, 128), (3, 96), (1, 1024)]  # (bh, S); 96 is ragged
+
+
+def _flash_inputs(bh, S, d, dtype, device, seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    return [torch.randn(bh, S, d, generator=g, device=device).to(dtype) for _ in range(4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 64, 128])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: f"bh{s[0]}-S{s[1]}")
+@pytest.mark.parametrize("mask", MASKS, ids=lambda m: f"causal{int(m[0])}-w{m[1]}")
+def test_flash_kernels_match_plain_versions(card, mask, shape, d, dtype):
+    causal, window = mask
+    bh, S = shape
+    q, k, v, go = _flash_inputs(bh, S, d, dtype, card)
+    kw = dict(causal=causal, window=window)
+    counts = [fa.flash_fwd.launches, fa.flash_dkv.launches, fa.flash_dq.launches]
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    want_out, want_lse = fa.flash_fwd_reference(q, k, v, **kw)
+    delta = (go.float() * want_out.float()).sum(-1)
+    dk, dv = fa.flash_dkv(q, k, v, go, want_lse, delta, **kw)
+    dq = fa.flash_dq(q, k, v, go, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert [fa.flash_fwd.launches, fa.flash_dkv.launches, fa.flash_dq.launches] == [
+        c + 1 for c in counts
+    ]
+    want_dk, want_dv = fa.flash_dkv_reference(q, k, v, go, want_lse, delta, **kw)
+    want_dq = fa.flash_dq_reference(q, k, v, go, want_lse, delta, **kw)
+    assert out.dtype == dk.dtype == dv.dtype == dq.dtype == dtype
+    tol = TOL[dtype]
+    torch.testing.assert_close(out, want_out, **tol)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    for got, want in ((dk, want_dk), (dv, want_dv), (dq, want_dq)):
+        torch.testing.assert_close(got, want, **tol)
+
+
+def _dense_attention(q, k, v, causal, window):
+    """Autograd's own reference: the masked softmax on (S, S), float32."""
+    mask = fa.visible_mask(q.shape[-2], causal=causal, window=window, device=q.device)
+    logits = (q.float() * q.shape[-1] ** -0.5) @ k.float().transpose(-1, -2)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, fa.NEG_INF)
+    return (torch.softmax(logits, -1) @ v.float()).to(q.dtype)
+
+
+@pytest.mark.parametrize("mask", MASKS, ids=lambda m: f"causal{int(m[0])}-w{m[1]}")
+@pytest.mark.parametrize("seq", [96, 256])
+def test_flash_attention_grads_on_card(card, seq, mask):
+    """The autograd Function (forward kernel, then the two backward kernels)
+    against autograd through dense attention, on the JAX layout; S = 96 with
+    bq = bk = 32 leaves the kernels a ragged last tile."""
+    causal, window = mask
+    g = torch.Generator(card).manual_seed(3)
+    q, k, v = (torch.randn(2, 3, seq, 16, generator=g, device=card).requires_grad_()
+               for _ in range(3))
+    cot = torch.randn(2, 3, seq, 16, generator=g, device=card)
+    before = (fa.flash_fwd.launches, fa.flash_dkv.launches, fa.flash_dq.launches)
+    fa.flash_attention(q, k, v, causal=causal, window=window, bq=32, bk=32).backward(cot)
+    assert (fa.flash_fwd.launches, fa.flash_dkv.launches, fa.flash_dq.launches) == tuple(
+        n + 1 for n in before
+    )
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    _dense_attention(q, k, v, causal, window).backward(cot)
+    for a, e in zip(got, (q.grad, k.grad, v.grad)):
+        torch.testing.assert_close(a, e, **TOL[torch.float32])
+
+
+def test_flash_wrappers_refuse_bad_input(card):
+    q, k, v, go = _flash_inputs(2, 64, 16, torch.float32, card)
+    lse = torch.zeros(2, 64, device=card)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_fwd(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="shapes"):
+        fa.flash_fwd(q, k[:, :32].contiguous(), v)
+    with pytest.raises(ValueError, match="head dims"):
+        big = torch.zeros(1, 64, 160, device=card)
+        fa.flash_fwd(big, big, big)
+    with pytest.raises(TypeError, match="lse"):
+        fa.flash_dq(q, k, v, go, lse.double(), lse)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_dkv(q, k, v, go, lse[:, :32].contiguous(), lse)

@@ -1,5 +1,6 @@
 """The port stands alone: no jax, no JAX package, no silent CPU fallback."""
 
+import importlib
 import re
 import subprocess
 import sys
@@ -11,7 +12,9 @@ import torch
 from tpu_dist_torch import models
 from tpu_dist_torch.device import resolve_device
 from tpu_dist_torch.ops import _build, fused_dense, matmul
-from tpu_dist_torch.train import Trainer
+from tpu_dist_torch.train import LMTrainer, Trainer
+
+fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
 
 REPO = Path(__file__).resolve().parents[1]
 SOURCES = sorted((REPO / "tpu_dist_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -21,6 +24,8 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|tpu_dist)(\.|\s|$)", re.MULTIL
 def test_importing_the_port_loads_neither_jax_nor_tpu_dist():
     code = (
         "import sys, tpu_dist_torch, tpu_dist_torch.demos.train_dist\n"
+        "import tpu_dist_torch.ops.flash_attention, tpu_dist_torch.models.transformer_lm\n"
+        "import tpu_dist_torch.train.lm_trainer\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpu_dist'))\n"
         "assert not bad, bad\n"
     )
@@ -40,6 +45,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(models.mnist_net(), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LMTrainer(models.TransformerLM(vocab=8, dim=8, depth=1, heads=2), device="cuda")
 
 
 def test_cpu_matmul_never_touches_the_build(monkeypatch):
@@ -53,3 +60,21 @@ def test_cpu_matmul_never_touches_the_build(monkeypatch):
     matmul(x, w, torch.randn(4), epilogue="gelu").sum().backward()
     assert fused_dense.launches == before
     assert x.grad is not None and w.grad is not None
+
+
+def test_cpu_flash_never_touches_the_build(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"CPU flash attention tried to build {name}")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setenv("TPU_DIST_FLASH", "1")
+    counters = (fa.flash_fwd, fa.flash_dkv, fa.flash_dq)
+    before = [k.launches for k in counters]
+    lm = models.TransformerLM(vocab=16, dim=16, depth=1, heads=2, max_seq=128)
+    tokens = models.synthetic_tokens(2, 128, 16)
+    models.lm_loss(lm(tokens), tokens).backward()
+    q = torch.randn(1, 2, 64, 8, requires_grad=True)
+    fa.flash_attention(q, q, q, causal=True, window=8).sum().backward()
+    fa.flash_attention_lse(q, q, q)
+    assert [k.launches for k in counters] == before
+    assert q.grad is not None and lm.embed.table.grad is not None

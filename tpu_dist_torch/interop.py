@@ -1,12 +1,16 @@
 """Parameters to and from the JAX package's layout.
 
-A `tpu_dist.nn.Sequential` keeps its parameters as a tuple with one dict
-per layer (``{}`` for layers without parameters), as numpy arrays after
-``jax.device_get``.  A port ``Sequential`` keeps the same layers at the same
-indices, so layer ``i``'s ``"w"`` is the state-dict entry ``"i.w"``.  Only
-the convolution weight changes layout: JAX's HWIO against torch's OIHW.
-Dense weights are (in, out) on both sides.  The same mapping carries any
-tree shaped like the parameters, such as SGD momentum buffers.
+A JAX parameter tree is nested dicts, lists and tuples of arrays (numpy
+after ``jax.device_get``).  The port's state dict names each leaf by its
+path with dots, list positions included: ``{"blocks": [{"attn": {"qkv":
+{"w": ...}}}]}`` holds ``blocks.0.attn.qkv.w``.  A `tpu_dist.nn.Sequential`
+keeps one dict per layer in a tuple (``{}`` for layers without
+parameters), so layer ``i``'s ``"w"`` is ``"i.w"``, the index of the same
+layer in a port ``Sequential``.  Only the convolution weight changes
+layout (every 4-D leaf): JAX's HWIO against torch's OIHW.  Dense weights
+are (in, out) on both sides, and the learned position table stays
+(1, max_seq, dim).  The same mapping carries any tree shaped like the
+parameters, such as optimizer moments.
 """
 
 from __future__ import annotations
@@ -15,26 +19,59 @@ import numpy as np
 import torch
 
 
+def _flatten(tree, prefix: str, out: dict) -> None:
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        out[prefix] = tree
+        return
+    for key, sub in items:
+        _flatten(sub, f"{prefix}.{key}" if prefix else str(key), out)
+
+
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
     """JAX parameter tree -> port state dict (CPU tensors, own memory)."""
+    leaves: dict = {}
+    _flatten(tree, "", leaves)
     state = {}
-    for i, layer in enumerate(tree):
-        for name, leaf in layer.items():
-            a = np.asarray(leaf)
-            if a.ndim == 4:
-                a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-            state[f"{i}.{name}"] = torch.from_numpy(np.ascontiguousarray(a).copy())
+    for name, leaf in leaves.items():
+        a = np.asarray(leaf)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        state[name] = torch.from_numpy(np.ascontiguousarray(a).copy())
     return state
 
 
-def params_to_jax(state: dict[str, torch.Tensor], num_layers: int) -> tuple[dict, ...]:
-    """Port state dict -> JAX parameter tree of numpy arrays, for a
-    ``Sequential`` of ``num_layers`` layers."""
-    tree = tuple({} for _ in range(num_layers))
+def _lists(node):
+    """Nested dicts whose keys are all 0..n-1 become lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        indices = sorted(int(k) for k in node)
+        if indices == list(range(len(indices))):
+            return [node[str(i)] for i in indices]
+    return node
+
+
+def params_to_jax(state: dict[str, torch.Tensor], num_layers: int | None = None):
+    """Port state dict -> JAX parameter tree of numpy arrays.
+
+    With ``num_layers``: the tuple of per-layer dicts of a ``Sequential`` of
+    that many layers.  Without: nested dicts, with lists where the keys are
+    list positions (the TransformerLM's ``blocks``)."""
+    root: dict = {}
     for key, tensor in state.items():
-        index, name = key.split(".", 1)
         a = tensor.detach().cpu().numpy()
         if a.ndim == 4:
             a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        tree[int(index)][name] = np.ascontiguousarray(a)
-    return tree
+        *path, name = key.split(".")
+        node = root
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(a)
+    if num_layers is not None:
+        return tuple(root.get(str(i), {}) for i in range(num_layers))
+    return _lists(root)

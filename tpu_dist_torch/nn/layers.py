@@ -1,4 +1,5 @@
-"""The layers the MNIST ConvNet uses, as ``torch.nn.Module``s.
+"""The layers the MNIST ConvNet and the TransformerLM use, as
+``torch.nn.Module``s.
 
 Activations keep the JAX package's layout at every layer boundary: images
 NHWC, so ``flatten`` orders features H, W, C exactly as `tpu_dist.nn`
@@ -115,8 +116,46 @@ class Dropout2D(Dropout):
         return (x.shape[0], 1, 1, x.shape[-1])
 
 
+class LayerNorm(nn.Module):
+    """Layer norm over the last axis with eps 1e-6 and the population
+    variance, as `tpu_dist.nn.LayerNorm` (not torch's 1e-5); parameters
+    ``scale`` and ``bias``."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(-1, keepdim=True)
+        var = x.var(-1, keepdim=True, correction=0)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y * self.scale + self.bias
+
+
+class Embedding(nn.Module):
+    """Lookup table ``table`` (vocab, features), initialised normal * 0.02."""
+
+    def __init__(self, vocab: int, features: int, *, generator: torch.Generator | None = None):
+        super().__init__()
+        self.vocab = vocab
+        self.features = features
+        self.table = nn.Parameter(
+            torch.randn(vocab, features, generator=generator) * 0.02
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.table[x]
+
+
 def relu() -> nn.Module:
     return nn.ReLU()
+
+
+def gelu() -> nn.Module:
+    """The tanh form, which ``jax.nn.gelu`` computes by default."""
+    return nn.GELU(approximate="tanh")
 
 
 def log_softmax() -> nn.Module:

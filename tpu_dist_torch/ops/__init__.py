@@ -1,5 +1,12 @@
 """`tpu_dist_torch.ops` — the hand-written CUDA kernels of the port."""
 
+from tpu_dist_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_lse,
+    flash_dkv,
+    flash_dq,
+    flash_fwd,
+)
 from tpu_dist_torch.ops.matmul import (
     fused_dense,
     matmul,
@@ -7,4 +14,14 @@ from tpu_dist_torch.ops.matmul import (
     use_pallas_dense,
 )
 
-__all__ = ["fused_dense", "matmul", "matmul_reference", "use_pallas_dense"]
+__all__ = [
+    "flash_attention",
+    "flash_attention_lse",
+    "flash_dkv",
+    "flash_dq",
+    "flash_fwd",
+    "fused_dense",
+    "matmul",
+    "matmul_reference",
+    "use_pallas_dense",
+]

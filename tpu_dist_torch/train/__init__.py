@@ -1,6 +1,30 @@
-"""`tpu_dist_torch.train` — optimizer and trainer."""
+"""`tpu_dist_torch.train` — optimizers, schedules, FLOP counts and trainers."""
 
-from tpu_dist_torch.train.optim import sgd
+from tpu_dist_torch.train import flops, schedule
+from tpu_dist_torch.train.lm_trainer import LMEpochStats, LMTrainConfig, LMTrainer
+from tpu_dist_torch.train.optim import (
+    Optimizer,
+    adamw,
+    clip_by_global_norm,
+    decay_mask_default,
+    global_norm,
+    sgd,
+)
 from tpu_dist_torch.train.trainer import EpochStats, TrainConfig, Trainer
 
-__all__ = ["EpochStats", "TrainConfig", "Trainer", "sgd"]
+__all__ = [
+    "EpochStats",
+    "LMEpochStats",
+    "LMTrainConfig",
+    "LMTrainer",
+    "Optimizer",
+    "TrainConfig",
+    "Trainer",
+    "adamw",
+    "clip_by_global_norm",
+    "decay_mask_default",
+    "flops",
+    "global_norm",
+    "schedule",
+    "sgd",
+]
