@@ -18,10 +18,13 @@ the exit code is nonzero:
           same state on the card and on the CPU.
 [flash]   the three flash-attention kernels (forward, dK/dV, dQ) against
           their plain versions on the card: the LM path's shape (q, k, v
-          (16, 12, 1024, 64) bfloat16, causal), float32, windowed and ragged
-          cases; each kernel's time beside its bound, its plain version's
-          and, for the forward and forward + backward, the time of
-          ``scaled_dot_product_attention`` on the same inputs.
+          (16, 12, 1024, 64) bfloat16, causal), float32, float16, windowed,
+          ragged and head-dim-256 (float32, bfloat16, float16) cases, and
+          arrays past 2^31 elements; each kernel's time beside its bound,
+          its plain version's and, for the forward and forward + backward,
+          the time of ``scaled_dot_product_attention`` on the same inputs;
+          the count of dK elements that differ from the plain version at
+          d = 8, float32.
 [lm]      ``LMTrainer.fit`` of the GPT-2-small-class TransformerLM (vocab
           32768, dim 768, depth 12, heads 12, rope, seq 1024, global batch
           16, bfloat16 compute) with TPU_DIST_FLASH=1 for two epochs, its
@@ -29,6 +32,16 @@ the exit code is nonzero:
           losses; the kernels' share of a profiled step; then one step of a
           small LM on the card and on the CPU, losses and gradients
           compared.
+[ring]    the ring all-reduce kernel under ``comm.spmd`` at worlds 2, 3 and
+          4, every rank a process on this one card (the Gloo control group
+          carries the handle exchange; the kernel moves the data): each
+          rank's output bit for bit against the plain version in float32,
+          bfloat16, float16 and int32, ragged sizes, 100 calls back to back,
+          a workspace grown and reused; launch counts; one 64 MiB float32
+          call at world 4, held to the plain version too, timed per call
+          and traced for the kernel's own time beside the plain version and
+          its bound; then
+          a neighbour that cannot start makes both ranks' calls raise.
 
 Then one JSON line per kernel, the card's name and power limit, and the
 result line.  Without a CUDA device it exits nonzero before printing any
@@ -55,7 +68,7 @@ BF16_TOL = dict(rtol=1e-2, atol=1e-2)  # one bf16 rounding of the output
 # 700 W, `tpu_dist_torch.train.flops.PEAKS`): HBM bytes/s, and FLOP/s by
 # operand type (float32 outside the tensor cores, bf16 on them).
 PEAK_CARD = "NVIDIA H100 80GB HBM3"
-SOURCES = ("matmul", "flash_attention")  # csrc/<name>.cu
+SOURCES = ("matmul", "flash_attention", "ring")  # csrc/<name>.cu
 
 
 def check(ok: bool, what: str) -> None:
@@ -284,45 +297,38 @@ def visible_fraction(S: int, causal: bool, window, flops, fa) -> float:
     return fa.visible_mask(S, causal=causal, window=window).float().mean().item()
 
 
-def flash_cases(device, fa, F, flops) -> list[dict]:
-    """Each flash kernel against its plain version on the same inputs: the
-    forward's out and lse, then dK/dV and dQ from the plain forward's lse
-    and D = rowsum(dO * out).  Times are CUDA events around eager launches
-    (each launch runs for milliseconds, far above its launch cost).  The
-    bound of each kernel is its own products at the operand type's peak
-    against its bytes: 2 products forward, 4 for dK/dV (it recomputes P), 3
-    for dQ, each 2*bh*S*S*d times the visible fraction."""
+def flash_cases(device, fa, F, flops, checks) -> list[dict]:
+    """Each flash kernel against its plain version on the same inputs
+    (`ops.checks.check_flash_kernels`: the forward's out and lse, then
+    dK/dV and dQ from the plain forward's lse and D = rowsum(dO * out)).
+    Times are CUDA events around eager launches (each launch runs for
+    milliseconds, far above its launch cost).  The bound of each kernel is
+    its own products at the operand type's peak against its bytes: 2
+    products forward, 4 for dK/dV (it recomputes P), 3 for dQ, each
+    2*bh*S*S*d times the visible fraction."""
     cases = [
         ("lm", LM_ATTENTION, torch.bfloat16, True, None),  # every [lm] call
         ("f32", LM_ATTENTION, torch.float32, True, None),
+        ("f16", LM_ATTENTION, torch.float16, True, None),
         ("window", LM_ATTENTION, torch.bfloat16, True, 256),
         ("dense", (2, 12, 1024, 64), torch.float32, False, None),
         ("ragged", (2, 3, 96, 8), torch.float32, True, 40),
+        ("d256_f32", (2, 4, 1024, 256), torch.float32, True, None),
+        ("d256_bf16", (2, 4, 1024, 256), torch.bfloat16, True, None),
+        ("d256_f16", (2, 4, 1024, 256), torch.float16, True, None),
     ]
-    gen = torch.Generator(device).manual_seed(1)
     rows = []
-    for label, (b, h, S, d), dtype, causal, window in cases:
+    for seed, (label, (b, h, S, d), dtype, causal, window) in enumerate(cases):
         bh = b * h
-        q, k, v, go = (torch.randn(bh, S, d, generator=gen, device=device).to(dtype)
-                       for _ in range(4))
+        q, k, v, go = checks.flash_inputs(bh, S, d, dtype, device, seed=seed + 1)
         kw = dict(causal=causal, window=window)
-        out, lse = fa.flash_fwd(q, k, v, **kw)
-        want_out, want_lse = fa.flash_fwd_reference(q, k, v, **kw)
-        delta = (go.float() * want_out.float()).sum(-1)
-        dk, dv = fa.flash_dkv(q, k, v, go, want_lse, delta, **kw)
-        want_dk, want_dv = fa.flash_dkv_reference(q, k, v, go, want_lse, delta, **kw)
-        dq = fa.flash_dq(q, k, v, go, want_lse, delta, **kw)
-        want_dq = fa.flash_dq_reference(q, k, v, go, want_lse, delta, **kw)
-        torch.cuda.synchronize()
-        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        pairs = {"flash_fwd": [(out, want_out), (lse, want_lse)],
-                 "flash_dkv": [(dk, want_dk), (dv, want_dv)],
-                 "flash_dq": [(dq, want_dq)]}
-        errs = {}
-        for name, checks in pairs.items():
-            for got, want in checks:
-                torch.testing.assert_close(got, want, **(F32_TOL if got is lse else tol))
-            errs[name] = max((g.float() - w.float()).abs().max().item() for g, w in checks)
+        d8_f32 = d == 8 and dtype == torch.float32
+        checked = checks.check_flash_kernels(q, k, v, go, **kw, exact_dk=d8_f32)
+        errs, tol = checked["max_abs_err"], checked["tol"]
+        want_lse, delta = checked["lse"], checked["delta"]
+        if d8_f32:
+            print(f"[flash] dK elements that differ from the plain version at d = 8 float32: "
+                  f"{checked['dk_differing']} of {bh * S * d}", flush=True)
 
         product = 2 * bh * S * S * d * visible_fraction(S, causal, window, flops, fa)
         block, row = bh * S * d * q.element_size(), bh * S * 4
@@ -350,6 +356,7 @@ def flash_cases(device, fa, F, flops) -> list[dict]:
             bound_ms, bound_by = bound(*work[name], dtype)
             rows.append({
                 "kernel": name, **shape, "max_abs_err": errs[name], "tol": tol,
+                "dk_differing": checked["dk_differing"] if name == "flash_dkv" else None,
                 "timing": f"CUDA events around {iters} eager launches",
                 "ms": time_ms(kernel, iters, graph=False),
                 "plain_ms": time_ms(plain, iters, graph=False),
@@ -388,8 +395,11 @@ def flash_cases(device, fa, F, flops) -> list[dict]:
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
         print("[flash]", json.dumps(rows[-1]), flush=True)
-        del q, k, v, go, want_out, want_lse, dk, dv, dq, want_dk, want_dv, want_dq, leaves
+        del q, k, v, go, checked, want_lse, delta, leaves
         torch.cuda.empty_cache()
+    past = checks.check_flash_past_2_31(device)
+    print("[flash]", json.dumps({"case": "past 2^31", **past}), flush=True)
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -517,6 +527,60 @@ def lm_path(device, fa, card_name) -> dict:
     return {"launches": launches, "history": history, "profile": profile}
 
 
+RING_WORLDS = (2, 3, 4)
+RING_TIMED = (4, 64.0)  # world, MiB of float32 per rank
+
+
+def ring_path(checks, flops, metrics, card_name) -> dict:
+    """The ring kernel under `comm.spmd` at each world on this one card
+    (`ops.checks.check_ring`, which raises on any element that differs from
+    the plain version, a miscounted launch or a wrong workspace growth),
+    the world-4 run timed, then the stuck-neighbour check."""
+    runs = {}
+    for world in RING_WORLDS:
+        timed = world == RING_TIMED[0]
+        res = checks.check_ring(world, time_mbytes=RING_TIMED[1] if timed else 0.0)
+        runs[world] = res
+        differing = {label: counts.tolist() for label, counts in res["differing"].items()}
+        print(f"[ring] world {world}, {world} processes on one card: elements that differ "
+              f"from the plain version, per rank: {json.dumps(differing)}; kernel launches "
+              f"per rank {res['launches'].tolist()}; workspace grew {res['grows'].tolist()} "
+              f"times to {res['capacity'].tolist()} bytes", flush=True)
+    world, mib = RING_TIMED
+    res = runs[world]
+    payload = int(mib * 2**20)
+    ms = float(res["kernel_ms"].max())
+    # every rank's input read once and output written once, all on this card
+    bound_ms = 2 * world * payload / flops.peak_bytes_per_s(PEAK_CARD) * 1e3
+    timing = {
+        "world": world, "bytes_per_rank": payload, "dtype": "float32",
+        "timing": "ms: the kernel's own device time per launch from torch.profiler over 20 "
+                  "calls, the slowest rank; call_ms: CUDA events around 20 calls on each rank "
+                  "after a barrier (the wrapper's host work included), the slowest rank; "
+                  "gap_ms: the card idle between one launch and the next on the stream; "
+                  "check_ms: the host's time per call of the wrapper's shape check alone",
+        "ms_per_rank": res["kernel_ms"].tolist(), "ms": ms,
+        "call_ms_per_rank": res["call_ms"].tolist(), "call_ms": float(res["call_ms"].max()),
+        "gap_ms_per_rank": res["gap_ms"].tolist(), "host_ms_per_rank": res["host_ms"].tolist(),
+        "check_ms_per_rank": res["check_ms"].tolist(),
+        "bus_gbps": metrics.allreduce_gbps(payload, float(res["call_ms"].max()) / 1e3, world),
+        "differing": res["timed_differing"].tolist(),
+        "max_abs_err": float(res["timed_max_abs_err"].max()),
+        "plain_ms": float(res["plain_ms"][0]),
+        "plain": "ring_all_reduce_reference of the 4 stacked inputs, rank 0 alone on the card",
+        "bound_ms": bound_ms, "bound_by": "bytes",
+        "bound_basis": f"{world} inputs read once and {world} outputs written once in HBM",
+        "library_ms": None,
+        "library": "none: NCCL refuses two ranks on one device",
+        "card": card_name,
+    }
+    print("[ring]", json.dumps(timing), flush=True)
+    stuck = checks.check_ring_stuck_neighbour()
+    print(f"[ring] stuck neighbour: both ranks raised after {stuck['seconds']} s "
+          f"(bound 2 s per wait): {stuck['message']}", flush=True)
+    return {"launches": int(res["launches"][0]), "timing": timing}
+
+
 def build_all(_build) -> None:
     """One nvcc per source, all started together."""
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -538,8 +602,8 @@ def main() -> None:
     import torch.nn.functional as F
 
     from tpu_dist_torch import ops
-    from tpu_dist_torch.ops import _build
-    from tpu_dist_torch.train import flops
+    from tpu_dist_torch.ops import _build, checks
+    from tpu_dist_torch.train import flops, metrics
 
     fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
 
@@ -558,8 +622,9 @@ def main() -> None:
 
     rows = matmul_cases(device, ops, F)
     launches = main_path(device, ops, card_name)["launches"]
-    flash_rows = flash_cases(device, fa, F, flops)
+    flash_rows = flash_cases(device, fa, F, flops, checks)
     lm = lm_path(device, fa, card_name)
+    ring = ring_path(checks, flops, metrics, card_name)
 
     step = rows[:2]  # the two launches of one training step
     kernel = {
@@ -590,6 +655,20 @@ def main() -> None:
             "work": "one attention call of the [lm] path: q, k, v (16, 12, 1024, 64) "
                     "bfloat16, causal; 12 calls per training step",
         })
+    timing = ring["timing"]
+    kernels.append({
+        "name": "ring_all_reduce", "route": "cuda",
+        "source": "tpu_dist_torch/ops/csrc/ring.cu",
+        "replaces": "tpu_dist/ops/pallas_ring.py:36", "launches": ring["launches"],
+        **{key: timing[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+        "work": f"one call of {timing['bytes_per_rank']} bytes of float32 per rank at world "
+                f"{timing['world']}, every rank a process on this one card; max_abs_err: that "
+                "call's output against the plain version, the worst rank; ms: the kernel's "
+                "own time per launch from torch.profiler, the slowest rank; launches: rank 0 "
+                "of the world-4 run of [ring]; library_ms null: NCCL refuses two ranks on "
+                "one device",
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_and_power_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

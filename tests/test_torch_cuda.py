@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: fused dense,
-and the three flash-attention kernels (forward, dK/dV, dQ).
+the three flash-attention kernels (forward, dK/dV, dQ) and the ring
+all-reduce across processes.  The flash and ring checks are the port's own
+(`tpu_dist_torch.ops.checks`), which ``chip_smoke.py`` runs too.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one.  They import neither jax nor the JAX package, so they run on a
@@ -13,7 +15,7 @@ import importlib
 import pytest
 import torch
 
-from tpu_dist_torch.ops import fused_dense, matmul, matmul_reference
+from tpu_dist_torch.ops import checks, fused_dense, matmul, matmul_reference, pallas_ring
 
 # the module (the package exports its function of the same name)
 fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
@@ -93,38 +95,26 @@ MASKS = [(False, None), (True, None), (True, 40), (False, 40)]
 FLASH_SHAPES = [(2, 64), (2, 128), (3, 96), (1, 1024)]  # (bh, S); 96 is ragged
 
 
-def _flash_inputs(bh, S, d, dtype, device, seed=0):
-    g = torch.Generator(device).manual_seed(seed)
-    return [torch.randn(bh, S, d, generator=g, device=device).to(dtype) for _ in range(4)]
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("d", [8, 64, 128, 256], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: f"bh{s[0]}-S{s[1]}")
 @pytest.mark.parametrize("mask", MASKS, ids=lambda m: f"causal{int(m[0])}-w{m[1]}")
 def test_flash_kernels_match_plain_versions(card, mask, shape, d, dtype):
+    """Every head dim up to 256 (32-row tiles at d = 256) and every input
+    type the JAX kernels take.  At d = 8 in float32, where the scale is no
+    power of two, dK equals the plain version bit for bit while the plain
+    version's product over the S queries is one in-order sum, as the
+    kernel's (S <= 128 here; cuBLAS splits the sum at S = 1024)."""
     causal, window = mask
-    bh, S = shape
-    q, k, v, go = _flash_inputs(bh, S, d, dtype, card)
-    kw = dict(causal=causal, window=window)
-    counts = [fa.flash_fwd.launches, fa.flash_dkv.launches, fa.flash_dq.launches]
-    out, lse = fa.flash_fwd(q, k, v, **kw)
-    want_out, want_lse = fa.flash_fwd_reference(q, k, v, **kw)
-    delta = (go.float() * want_out.float()).sum(-1)
-    dk, dv = fa.flash_dkv(q, k, v, go, want_lse, delta, **kw)
-    dq = fa.flash_dq(q, k, v, go, want_lse, delta, **kw)
-    torch.cuda.synchronize()
-    assert [fa.flash_fwd.launches, fa.flash_dkv.launches, fa.flash_dq.launches] == [
-        c + 1 for c in counts
-    ]
-    want_dk, want_dv = fa.flash_dkv_reference(q, k, v, go, want_lse, delta, **kw)
-    want_dq = fa.flash_dq_reference(q, k, v, go, want_lse, delta, **kw)
-    assert out.dtype == dk.dtype == dv.dtype == dq.dtype == dtype
-    tol = TOL[dtype]
-    torch.testing.assert_close(out, want_out, **tol)
-    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
-    for got, want in ((dk, want_dk), (dv, want_dv), (dq, want_dq)):
-        torch.testing.assert_close(got, want, **tol)
+    q, k, v, go = checks.flash_inputs(*shape, d, dtype, card)
+    checks.check_flash_kernels(q, k, v, go, causal=causal, window=window,
+                               exact_dk=d == 8 and dtype == torch.float32 and shape[1] <= 128)
+
+
+def test_flash_kernels_past_2_31_elements(card):
+    """(bh, S, d) bfloat16 arrays of more than 2^31 elements: 64-bit offsets."""
+    checks.check_flash_past_2_31(card)
 
 
 def _dense_attention(q, k, v, causal, window):
@@ -161,12 +151,12 @@ def test_flash_attention_grads_on_card(card, seq, mask):
 
 
 def test_flash_wrappers_refuse_bad_input(card):
-    q, k, v, go = _flash_inputs(2, 64, 16, torch.float32, card)
+    q, k, v, go = checks.flash_inputs(2, 64, 16, torch.float32, card)
     lse = torch.zeros(2, 64, device=card)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_fwd(q, k.cpu(), v)
     with pytest.raises(TypeError):
-        fa.flash_fwd(q.half(), k.half(), v.half())
+        fa.flash_fwd(q.double(), k.double(), v.double())
     with pytest.raises(TypeError):
         fa.flash_fwd(q, k.bfloat16(), v)
     with pytest.raises(ValueError, match="contiguous"):
@@ -174,9 +164,31 @@ def test_flash_wrappers_refuse_bad_input(card):
     with pytest.raises(ValueError, match="shapes"):
         fa.flash_fwd(q, k[:, :32].contiguous(), v)
     with pytest.raises(ValueError, match="head dims"):
-        big = torch.zeros(1, 64, 160, device=card)
+        big = torch.zeros(1, 64, 264, device=card)
         fa.flash_fwd(big, big, big)
     with pytest.raises(TypeError, match="lse"):
         fa.flash_dq(q, k, v, go, lse.double(), lse)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_dkv(q, k, v, go, lse[:, :32].contiguous(), lse)
+
+
+# ---------------------------------------------------------------- ring
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_ring_kernel_matches_plain_version(card, world):
+    """`world` processes on the card: every output bit for bit equal to the
+    plain version (float32, bfloat16, float16, int32, ragged, 100 calls back
+    to back, a workspace grown and reused), one launch per call."""
+    checks.check_ring(world)
+
+
+def test_ring_stuck_neighbour_raises_within_the_bound(card):
+    checks.check_ring_stuck_neighbour()
+
+
+def test_ring_wrapper_refuses_what_the_kernel_cannot_take(card):
+    with pytest.raises(TypeError):
+        pallas_ring.ring_all_reduce_pallas(torch.zeros(8, device=card, dtype=torch.float64))
+    with pytest.raises(RuntimeError, match="process group"):
+        pallas_ring.ring_all_reduce_pallas(torch.zeros(8, device=card))

@@ -167,3 +167,13 @@ def test_tile_ranges_cut_the_work():
     assert causal == n * (n + 1) // 2
     band = [fa.query_tile_range(j, S, t, t, causal=True, window=64) for j in range(n)]
     assert all(hi - lo <= 2 for lo, hi in band)
+
+
+def test_tiles_and_peaks_cover_every_kernel_shape_and_dtype():
+    """The kernels take 32-row tiles only past d = 128, and the card's peak
+    table (the bounds `chip_smoke.py` prints) holds every dtype they take."""
+    from tpu_dist_torch.train import flops
+
+    assert [fa.tile_rows(d) for d in (8, 64, 128, 129, 256)] == [64, 64, 64, 32, 32]
+    for dtype in fa._DTYPE_CODES:
+        assert flops.peak_flops("NVIDIA H100 80GB HBM3", dtype) > 0

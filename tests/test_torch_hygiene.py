@@ -11,7 +11,7 @@ import torch
 
 from tpu_dist_torch import models
 from tpu_dist_torch.device import resolve_device
-from tpu_dist_torch.ops import _build, fused_dense, matmul
+from tpu_dist_torch.ops import _build, fused_dense, matmul, pallas_ring
 from tpu_dist_torch.train import LMTrainer, Trainer
 
 fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
@@ -26,6 +26,10 @@ def test_importing_the_port_loads_neither_jax_nor_tpu_dist():
         "import sys, tpu_dist_torch, tpu_dist_torch.demos.train_dist\n"
         "import tpu_dist_torch.ops.flash_attention, tpu_dist_torch.models.transformer_lm\n"
         "import tpu_dist_torch.train.lm_trainer\n"
+        "import tpu_dist_torch.comm.runner, tpu_dist_torch.parallel.ring\n"
+        "import tpu_dist_torch.ops.pallas_ring, tpu_dist_torch.ops.checks\n"
+        "import tpu_dist_torch.train.metrics\n"
+        "import tpu_dist_torch.demos.ptp, tpu_dist_torch.demos.allreduce\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpu_dist'))\n"
         "assert not bad, bad\n"
     )
@@ -78,3 +82,17 @@ def test_cpu_flash_never_touches_the_build(monkeypatch):
     fa.flash_attention_lse(q, q, q)
     assert [k.launches for k in counters] == before
     assert q.grad is not None and lm.embed.table.grad is not None
+
+
+def test_cpu_ring_never_touches_the_build(monkeypatch):
+    """A CPU tensor takes the plain ring (a world of one here): no build,
+    no launch counted."""
+
+    def refuse(name):
+        raise AssertionError(f"CPU ring tried to build {name}")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    before = pallas_ring.ring_all_reduce_pallas.launches
+    x = torch.arange(6.0).reshape(2, 3)
+    torch.testing.assert_close(pallas_ring.ring_all_reduce_pallas(x), x)
+    assert pallas_ring.ring_all_reduce_pallas.launches == before

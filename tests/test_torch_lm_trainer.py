@@ -78,6 +78,45 @@ def test_fit_matches_jax_lm_trainer(monkeypatch, grad_clip):
                          interop.params_from_jax(jax.device_get(ref.params)), steps=3)
 
 
+@pytest.mark.parametrize("compute_dtype", ["float16", "float32"])
+def test_compute_dtype_matches_jax_lm_trainer(monkeypatch, compute_dtype):
+    """The forward and backward on a float16 (or float32) copy of the float32
+    masters, against the JAX LMTrainer with the same ``compute_dtype``.
+
+    Both start from the JAX init with the embedding table scaled up 25x:
+    at the init's std of 0.02 the first LayerNorm's rsqrt backward
+    (rsqrt(var)^3, about 1.25e5) overflows float16 in both packages alike,
+    and every loss after the first step is NaN.  float16 rounds every
+    activation in both packages, each at its own places (XLA may fuse
+    several operations between roundings), so float16 losses agree to 1e-3
+    relative and params within the first-step Adam bound; float32 is held
+    as test_fit_matches_jax_lm_trainer holds it."""
+    monkeypatch.setenv("TPU_DIST_FLASH", "1")
+    mesh = jax_comm.make_mesh(1, ("data",), platform="cpu")
+    cfg = dict(epochs=3, global_batch=4, compute_dtype=compute_dtype, log=_quiet)
+    ref = jax_train.LMTrainer(jax_models.TransformerLM(**LM), mesh,
+                              jax_train.LMTrainConfig(**cfg))
+    ref.params["embed"]["table"] = ref.params["embed"]["table"] * 25.0
+    lm = models.TransformerLM(**LM)
+    lm.load_state_dict(interop.params_from_jax(jax.device_get(ref.params)))
+    port = LMTrainer(lm, LMTrainConfig(**cfg), device="cpu")
+    windows = np.array(jax_models.synthetic_tokens(4, 128, LM["vocab"], seed=2))
+    want, got = ref.fit(windows), port.fit(windows)
+    rtol = 1e-3 if compute_dtype == "float16" else 1e-5
+    np.testing.assert_allclose([s.mean_loss for s in got], [s.mean_loss for s in want],
+                               rtol=rtol)
+    assert all(np.isfinite(s.mean_loss) for s in got)
+    assert got[-1].mean_loss < got[0].mean_loss
+    assert all(p.dtype == torch.float32 for p in port.lm.parameters())
+    params = port.lm.state_dict()
+    want_params = interop.params_from_jax(jax.device_get(ref.params))
+    if compute_dtype == "float32":
+        _assert_params_close(params, want_params, steps=3)
+    else:
+        diffs = torch.cat([(params[k] - want_params[k]).abs().reshape(-1) for k in want_params])
+        assert diffs.max().item() <= 2 * LR * 3
+
+
 def test_validation_perplexity_is_reported():
     lm = models.TransformerLM(vocab=32, dim=16, depth=1, heads=2, max_seq=64,
                               generator=torch.Generator().manual_seed(0))
@@ -92,7 +131,7 @@ def test_unported_options_are_refused():
     with pytest.raises(ValueError, match="ROADMAP"):
         LMTrainer(lm, LMTrainConfig(accum_steps=2), device="cpu")
     with pytest.raises(ValueError, match="compute_dtype"):
-        LMTrainer(lm, LMTrainConfig(compute_dtype="float16"), device="cpu")
+        LMTrainer(lm, LMTrainConfig(compute_dtype="int32"), device="cpu")
     trainer = LMTrainer(lm, LMTrainConfig(global_batch=8, log=_quiet), device="cpu")
     with pytest.raises(ValueError, match="global batch"):
         trainer.fit(models.synthetic_tokens(4, 64, 32))
@@ -174,8 +213,10 @@ from tpu_dist_torch import comm, models
 from tpu_dist_torch.train import LMTrainConfig, LMTrainer
 
 rank, world = comm.init_process_group(torch.device("cpu"))
+# rank 1 builds from another seed: the LMTrainer makes the replicas equal
 lm = models.TransformerLM(vocab=32, dim=16, depth=1, heads=2, max_seq=128,
-                          pos_embedding="rope", generator=torch.Generator().manual_seed(0))
+                          pos_embedding="rope",
+                          generator=torch.Generator().manual_seed(0 if rank == 0 else 99))
 trainer = LMTrainer(lm, LMTrainConfig(epochs=1, global_batch=4, log=lambda line: None),
                     device="cpu")
 (stats,) = trainer.fit(models.synthetic_tokens(8, 128, 32, seed=5))
@@ -193,7 +234,9 @@ def _free_port():
 
 def test_gloo_world_two_matches_world_one(tmp_path, monkeypatch):
     """Two processes, 2 windows each per step, 2 steps (flash path at
-    S = 128), against one process on the same global batches."""
+    S = 128), against one process on the same global batches; rank 1 built
+    its model from another seed, and the broadcast from rank 0 at
+    construction makes it rank 0's."""
     monkeypatch.setenv("TPU_DIST_FLASH", "1")
     env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
                WORLD_SIZE="2", PYTHONPATH=str(REPO))

@@ -139,7 +139,8 @@ from tpu_dist_torch import comm, data, models
 from tpu_dist_torch.train import TrainConfig, Trainer
 
 rank, world = comm.init_process_group(torch.device("cpu"))
-net = models.mnist_net(torch.Generator().manual_seed(0))
+# rank 1 builds from another seed: the Trainer makes the replicas equal
+net = models.mnist_net(torch.Generator().manual_seed(0 if rank == 0 else 99))
 for i in (4, 10):
     net[i].rate = 0.0
 trainer = Trainer(net, TrainConfig(epochs=1, log=lambda line: None), device="cpu")
@@ -158,7 +159,9 @@ def _free_port():
 
 def test_gloo_world_two_matches_world_one(tmp_path, monkeypatch):
     """Two processes, 64 samples each per step, 2 steps, against one
-    process stepping on the same 128-sample global batches."""
+    process stepping on the same 128-sample global batches; rank 1 built
+    its model from another seed, and the Trainer's broadcast from rank 0
+    makes it rank 0's."""
     monkeypatch.setenv("TPU_DIST_PALLAS_DENSE", "1")
     env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
                WORLD_SIZE="2", PYTHONPATH=str(REPO))

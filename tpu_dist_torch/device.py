@@ -13,18 +13,20 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` means the card: ``cuda:$LOCAL_RANK`` (0 outside torchrun).
-    ``"cpu"`` means the CPU.  A CUDA device with no card present raises."""
-    if device is None:
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
-    device = torch.device(device)
+    """``None`` means the card: ``cuda:($LOCAL_RANK % device_count)`` (rank
+    0 outside torchrun; ranks past the card count share cards).  ``"cpu"``
+    means the CPU.  A CUDA device with no card present raises."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {device} requested but no CUDA device is available; "
                 "pass device='cpu' to run on the CPU"
             )
-        if device.index is None:
+        if device.index is None and "LOCAL_RANK" in os.environ:
+            local_rank = int(os.environ["LOCAL_RANK"])
+            device = torch.device("cuda", local_rank % torch.cuda.device_count())
+        elif device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}; use 'cuda' or 'cpu'")

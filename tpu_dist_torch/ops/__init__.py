@@ -13,6 +13,11 @@ from tpu_dist_torch.ops.matmul import (
     matmul_reference,
     use_pallas_dense,
 )
+from tpu_dist_torch.ops.pallas_ring import (
+    ring_all_reduce_pallas,
+    ring_all_reduce_reference,
+    synchronize,
+)
 
 __all__ = [
     "flash_attention",
@@ -23,5 +28,8 @@ __all__ = [
     "fused_dense",
     "matmul",
     "matmul_reference",
+    "ring_all_reduce_pallas",
+    "ring_all_reduce_reference",
+    "synchronize",
     "use_pallas_dense",
 ]

@@ -10,25 +10,31 @@
 //   flash_dq_kernel   <- `_dq_kernel` (:233): one block per query tile,
 //                        scanning key tiles; dQ = dS K scale.
 // with P = exp(Q K^T scale - lse) and dS = P * (dO V^T - D), D = rowsum(dO O).
-// Same function as the TPU kernels: q, k, v (bh, S, d) in float32 or
-// bfloat16, every product and the softmax in float32, out/dq/dk/dv in the
-// input type, lse (bh, S) in float32; masked logits are -1e30 and masked
-// probabilities exactly 0, as there.  `scale` multiplies q before the
-// product, as `qs = q * scale` does on the TPU.
+// Same function as the TPU kernels: q, k, v (bh, S, d) in float32,
+// bfloat16 or float16, every product and the softmax in float32,
+// out/dq/dk/dv in the input type, lse (bh, S) in float32; masked logits are
+// -1e30 and masked probabilities exactly 0, as there.  `scale` multiplies q
+// before the score product, as `qs = q * scale` does on the TPU; dK and dQ
+// are multiplied by `scale` once, after their whole sum, as the plain
+// version does.
 //
 // Not the same blocking.  The TPU grid walks (bh, S/256) programs in order
 // on one core, with whole K/V rows resident in VMEM.  Here each block owns
-// one 64-row tile of the output (queries for the forward and dQ, keys for
-// dK/dV), stages the other side's 64-row tiles through shared memory one at
-// a time, and keeps its accumulators in registers; blocks run in any order,
+// one TILE-row tile of the output (queries for the forward and dQ, keys for
+// dK/dV), stages the other side's TILE-row tiles through shared memory one
+// at a time, and keeps its accumulators in registers; blocks run in any order,
 // and the two backward kernels each own their output, so nothing is summed
 // across blocks: no atomics, and the gradients are the same from run to
 // run.  Causal and window tiles that are wholly masked are skipped with the
-// TPU kernels' own range formulas at this 64-row tile (mirrored in Python
-// as `key_tile_range` / `query_tile_range` and tested there).  A ragged last
+// TPU kernels' own range formulas at this tile (mirrored in Python as
+// `key_tile_range` / `query_tile_range` and tested there).  A ragged last
 // tile is masked, so any S works.  The head dim is padded with zeros to the
-// template width D (16, 32, 64 or 128); shared-memory rows are D + 1 floats
-// apart so the column reads of the score products hit 16 different banks.
+// template width D (16, 32, 64, 128 or 256); shared-memory rows are D + 1
+// floats apart so the column reads of the score products hit 16 different
+// banks.  TILE is 64 rows up to D = 128; at D = 256 four 64-row tiles of
+// D + 1 floats (dK/dV: K, V, Q, dO) would need 263 KB, past the 227 KB a
+// block may hold, so D = 256 takes 32-row tiles (103-140 KB).  Offsets into
+// q, k, v and the outputs are 64-bit, so bh * S * d may pass 2^31.
 //
 // What bounds it on the H100.  At the training shape (bh = 192, S = 1024,
 // d = 64, causal, bf16) the forward is 2 products of 2*bh*S^2*d FLOP at the
@@ -43,18 +49,26 @@
 // tile is read once per block, and the output is written once.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 namespace {
 
-constexpr int kTile = 64;        // rows of a query or key tile
-constexpr int kThreads = 256;    // 16 x 16; each owns 4 rows x 4 columns
-constexpr int kPLD = kTile + 1;  // row stride of the (64, 64) score tiles
+// A block of 4 * TILE threads, (TILE / 4) x 16: thread (ty, tx) owns the
+// tile rows ty*4 + r (r < 4) and the columns tx + 16c of every row.
+template <int TILE>
+struct Tiling {
+  static constexpr int kThreads = 4 * TILE;
+  static constexpr int kCols = TILE / 16;  // score columns per thread
+  static constexpr int kPLD = TILE + 1;    // row stride of the score tiles
+};
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernels
 
-enum DType { kFloat32 = 0, kBFloat16 = 1 };
+using index_t = long long;  // offsets into (bh, S, d) arrays
+
+enum DType { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -64,32 +78,38 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half(v);
+}
 
 __host__ __device__ __forceinline__ int floor_div(int a, int b) {
   const int q = a / b;
   return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
 }
 
-__host__ __device__ __forceinline__ int num_tiles(int S) {
-  return (S + kTile - 1) / kTile;
+__host__ __device__ __forceinline__ int num_tiles(int S, int tile) {
+  return (S + tile - 1) / tile;
 }
 
 // Key tiles [lo, hi) that query tile i can see (flash_attention.py:80-92).
+template <int TILE>
 __device__ __forceinline__ void key_tile_range(int i, int S, int causal,
                                                int window, int* lo, int* hi) {
-  const int n = num_tiles(S);
-  *hi = causal ? min(n, floor_div((i + 1) * kTile + kTile - 1, kTile)) : n;
-  *lo = window > 0 ? max(0, floor_div(i * kTile - window + 1, kTile)) : 0;
+  const int n = num_tiles(S, TILE);
+  *hi = causal ? min(n, floor_div((i + 1) * TILE + TILE - 1, TILE)) : n;
+  *lo = window > 0 ? max(0, floor_div(i * TILE - window + 1, TILE)) : 0;
 }
 
 // Query tiles [lo, hi) that can see key tile j (flash_attention.py:216-225).
+template <int TILE>
 __device__ __forceinline__ void query_tile_range(int j, int S, int causal,
                                                  int window, int* lo,
                                                  int* hi) {
-  const int n = num_tiles(S);
-  *lo = causal ? floor_div(j * kTile, kTile) : 0;
+  const int n = num_tiles(S, TILE);
+  *lo = causal ? floor_div(j * TILE, TILE) : 0;
   *hi = window > 0
-            ? min(n, floor_div((j + 1) * kTile - 1 + window - 1, kTile) + 1)
+            ? min(n, floor_div((j + 1) * TILE - 1 + window - 1, TILE) + 1)
             : n;
 }
 
@@ -113,61 +133,63 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Stage rows [row0, row0 + 64) of a row-major (S, d) matrix as float32,
-// times `mul`, into a (64, D + 1) shared tile; rows past S and columns past
-// d read as 0, which adds nothing to any product.
-template <typename T, int D>
+// Stage rows [row0, row0 + TILE) of a row-major (S, d) matrix as float32,
+// times `mul`, into a (TILE, D + 1) shared tile; rows past S and columns
+// past d read as 0, which adds nothing to any product.
+template <typename T, int D, int TILE>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
                                           int row0, int S, int d, float mul) {
   constexpr int LD = D + 1;
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
+  for (int e = threadIdx.x; e < TILE * D; e += Tiling<TILE>::kThreads) {
     const int r = e / D;
     const int c = e % D;
     const int gr = row0 + r;
     float v = 0.0f;
-    if (gr < S && c < d) v = to_float(src[(size_t)gr * d + c]) * mul;
+    if (gr < S && c < d) v = to_float(src[(index_t)gr * d + c]) * mul;
     dst[r * LD + c] = v;
   }
 }
 
-template <int D>
+template <int D, int TILE>
 constexpr size_t fwd_smem_floats() {
-  return 3 * kTile * (D + 1) + kTile * kPLD;
+  return 3 * TILE * (D + 1) + TILE * Tiling<TILE>::kPLD;
 }
-template <int D>
+template <int D, int TILE>
 constexpr size_t dkv_smem_floats() {
-  return 4 * kTile * (D + 1) + 2 * kTile * kPLD + 2 * kTile;
+  return 4 * TILE * (D + 1) + 2 * TILE * Tiling<TILE>::kPLD + 2 * TILE;
 }
-template <int D>
+template <int D, int TILE>
 constexpr size_t dq_smem_floats() {
-  return 4 * kTile * (D + 1) + kTile * kPLD;
+  return 4 * TILE * (D + 1) + TILE * Tiling<TILE>::kPLD;
 }
 
 // One block per (query tile, batch-head).  Thread (ty, tx) owns query rows
-// ty*4 + r and, of each 64-key tile, the keys tx + 16c; of the output it
-// owns the columns tx + 16c.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// ty*4 + r and, of each key tile, the keys tx + 16c; of the output it owns
+// the columns tx + 16c.
+template <typename T, int D, int TILE>
+__global__ void __launch_bounds__(Tiling<TILE>::kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int S, int d, float scale,
                      int causal, int window) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
+  constexpr int KC = Tiling<TILE>::kCols;
+  constexpr int PLD = Tiling<TILE>::kPLD;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* Ks = Qs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* Ps = Vs + kTile * LD;
+  float* Ks = Qs + TILE * LD;
+  float* Vs = Ks + TILE * LD;
+  float* Ps = Vs + TILE * LD;
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int bh = blockIdx.x;
+  const index_t bh = blockIdx.x;
   const int i = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
-  const size_t base = (size_t)bh * S * d;
-  const int q0 = i * kTile;
+  const index_t base = bh * S * d;
+  const int q0 = i * TILE;
 
-  load_tile<T, D>(Qs, q + base, q0, S, d, scale);
+  load_tile<T, D, TILE>(Qs, q + base, q0, S, d, scale);
 
   float m[4], l[4], acc[4][DC];
 #pragma unroll
@@ -179,39 +201,39 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   int lo, hi;
-  key_tile_range(i, S, causal, window, &lo, &hi);
+  key_tile_range<TILE>(i, S, causal, window, &lo, &hi);
   for (int j = lo; j < hi; ++j) {
-    const int k0 = j * kTile;
+    const int k0 = j * TILE;
     __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile<T, D>(Ks, k + base, k0, S, d, 1.0f);
-    load_tile<T, D>(Vs, v + base, k0, S, d, 1.0f);
+    load_tile<T, D, TILE>(Ks, k + base, k0, S, d, 1.0f);
+    load_tile<T, D, TILE>(Vs, v + base, k0, S, d, 1.0f);
     __syncthreads();
 
-    float s[4][4];
+    float s[4][KC];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
+      for (int c = 0; c < KC; ++c) s[r][c] = 0.0f;
 #pragma unroll 8
     for (int kk = 0; kk < D; ++kk) {
-      float a[4], b[4];
+      float a[4], b[KC];
 #pragma unroll
       for (int r = 0; r < 4; ++r) a[r] = Qs[(ty * 4 + r) * LD + kk];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = Ks[(tx + 16 * c) * LD + kk];
+      for (int c = 0; c < KC; ++c) b[c] = Ks[(tx + 16 * c) * LD + kk];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], b[c], s[r][c]);
+        for (int c = 0; c < KC; ++c) s[r][c] = fmaf(a[r], b[c], s[r][c]);
     }
 
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int qp = q0 + ty * 4 + r;
-      bool vis[4];
+      bool vis[KC];
       float mt = kNegInf;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < KC; ++c) {
         vis[c] = visible(qp, k0 + tx + 16 * c, S, causal, window);
         if (!vis[c]) s[r][c] = kNegInf;
         mt = fmaxf(mt, s[r][c]);
@@ -220,9 +242,9 @@ __global__ void __launch_bounds__(kThreads)
       const float correction = expf(m[r] - m_new);
       float ps = 0.0f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < KC; ++c) {
         const float p = vis[c] ? expf(s[r][c] - m_new) : 0.0f;
-        Ps[(ty * 4 + r) * kPLD + tx + 16 * c] = p;
+        Ps[(ty * 4 + r) * PLD + tx + 16 * c] = p;
         ps += p;
       }
       l[r] = l[r] * correction + row_sum(ps);
@@ -233,10 +255,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
+    for (int kk = 0; kk < TILE; ++kk) {
       float p[4], vv[DC];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) p[r] = Ps[(ty * 4 + r) * kPLD + kk];
+      for (int r = 0; r < 4; ++r) p[r] = Ps[(ty * 4 + r) * PLD + kk];
 #pragma unroll
       for (int c = 0; c < DC; ++c) vv[c] = Vs[kk * LD + tx + 16 * c];
 #pragma unroll
@@ -253,18 +275,21 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = tx + 16 * c;
-      if (col < d) store(out + base + (size_t)qp * d + col, acc[r][c] / l[r]);
+      if (col < d) store(out + base + (index_t)qp * d + col, acc[r][c] / l[r]);
     }
-    if (tx == 0) lse[(size_t)bh * S + qp] = m[r] + logf(l[r]);
+    if (tx == 0) lse[bh * S + qp] = m[r] + logf(l[r]);
   }
 }
 
 // One block per (key tile, batch-head).  Thread (ty, tx) owns key rows
-// ty*4 + r and, of each 64-query tile, the queries tx + 16c; of dK and dV
-// it owns the columns tx + 16c.  The transposed score tile P^T and dS^T go
-// through shared memory to the two products over queries.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// ty*4 + r and, of each query tile, the queries tx + 16c; of dK and dV it
+// owns the columns tx + 16c.  The transposed score tile P^T and dS^T go
+// through shared memory to the two products over queries.  Q is staged
+// unscaled: the score product scales each Q value as it reads it (the
+// same float32 product as the forward's staged q * scale), and dK takes
+// `scale` once at write-out, after its whole sum, as the plain version.
+template <typename T, int D, int TILE>
+__global__ void __launch_bounds__(Tiling<TILE>::kThreads)
     flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -273,26 +298,28 @@ __global__ void __launch_bounds__(kThreads)
                      int window) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
+  constexpr int QC = Tiling<TILE>::kCols;
+  constexpr int PLD = Tiling<TILE>::kPLD;
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + kTile * LD;
-  float* Qs = Vs + kTile * LD;
-  float* dOs = Qs + kTile * LD;
-  float* Pt = dOs + kTile * LD;
-  float* dSt = Pt + kTile * kPLD;
-  float* Ls = dSt + kTile * kPLD;
-  float* Ds = Ls + kTile;
+  float* Vs = Ks + TILE * LD;
+  float* Qs = Vs + TILE * LD;
+  float* dOs = Qs + TILE * LD;
+  float* Pt = dOs + TILE * LD;
+  float* dSt = Pt + TILE * PLD;
+  float* Ls = dSt + TILE * PLD;
+  float* Ds = Ls + TILE;
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int bh = blockIdx.x;
+  const index_t bh = blockIdx.x;
   const int j = blockIdx.y;  // longest causal scans (low j) first
-  const size_t base = (size_t)bh * S * d;
-  const size_t row_base = (size_t)bh * S;
-  const int k0 = j * kTile;
+  const index_t base = bh * S * d;
+  const index_t row_base = bh * S;
+  const int k0 = j * TILE;
 
-  load_tile<T, D>(Ks, k + base, k0, S, d, 1.0f);
-  load_tile<T, D>(Vs, v + base, k0, S, d, 1.0f);
+  load_tile<T, D, TILE>(Ks, k + base, k0, S, d, 1.0f);
+  load_tile<T, D, TILE>(Vs, v + base, k0, S, d, 1.0f);
 
   float dk_acc[4][DC], dv_acc[4][DC];
 #pragma unroll
@@ -301,41 +328,41 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < DC; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.0f;
 
   int lo, hi;
-  query_tile_range(j, S, causal, window, &lo, &hi);
+  query_tile_range<TILE>(j, S, causal, window, &lo, &hi);
   for (int qi = lo; qi < hi; ++qi) {
-    const int q0 = qi * kTile;
+    const int q0 = qi * TILE;
     __syncthreads();
-    load_tile<T, D>(Qs, q + base, q0, S, d, scale);
-    load_tile<T, D>(dOs, dout + base, q0, S, d, 1.0f);
-    if (threadIdx.x < kTile) {
+    load_tile<T, D, TILE>(Qs, q + base, q0, S, d, 1.0f);
+    load_tile<T, D, TILE>(dOs, dout + base, q0, S, d, 1.0f);
+    if (threadIdx.x < TILE) {
       const int qp = q0 + threadIdx.x;
       Ls[threadIdx.x] = qp < S ? lse[row_base + qp] : 0.0f;
       Ds[threadIdx.x] = qp < S ? delta[row_base + qp] : 0.0f;
     }
     __syncthreads();
 
-    float st[4][4], dpt[4][4];
+    float st[4][QC], dpt[4][QC];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) st[r][c] = dpt[r][c] = 0.0f;
+      for (int c = 0; c < QC; ++c) st[r][c] = dpt[r][c] = 0.0f;
 #pragma unroll 4
     for (int kk = 0; kk < D; ++kk) {
-      float kr[4], vr[4], qc[4], oc[4];
+      float kr[4], vr[4], qc[QC], oc[QC];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         kr[r] = Ks[(ty * 4 + r) * LD + kk];
         vr[r] = Vs[(ty * 4 + r) * LD + kk];
       }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        qc[c] = Qs[(tx + 16 * c) * LD + kk];
+      for (int c = 0; c < QC; ++c) {
+        qc[c] = Qs[(tx + 16 * c) * LD + kk] * scale;
         oc[c] = dOs[(tx + 16 * c) * LD + kk];
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < QC; ++c) {
           st[r][c] = fmaf(qc[c], kr[r], st[r][c]);
           dpt[r][c] = fmaf(oc[c], vr[r], dpt[r][c]);
         }
@@ -344,23 +371,23 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < 4; ++r) {
       const int kp = k0 + ty * 4 + r;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < QC; ++c) {
         const int qrow = tx + 16 * c;
         const bool vis = visible(q0 + qrow, kp, S, causal, window);
         const float p = vis ? expf(st[r][c] - Ls[qrow]) : 0.0f;
-        Pt[(ty * 4 + r) * kPLD + qrow] = p;
-        dSt[(ty * 4 + r) * kPLD + qrow] = p * (dpt[r][c] - Ds[qrow]);
+        Pt[(ty * 4 + r) * PLD + qrow] = p;
+        dSt[(ty * 4 + r) * PLD + qrow] = p * (dpt[r][c] - Ds[qrow]);
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int qq = 0; qq < kTile; ++qq) {
+    for (int qq = 0; qq < TILE; ++qq) {
       float pr[4], sr[4], oc[DC], qc[DC];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        pr[r] = Pt[(ty * 4 + r) * kPLD + qq];
-        sr[r] = dSt[(ty * 4 + r) * kPLD + qq];
+        pr[r] = Pt[(ty * 4 + r) * PLD + qq];
+        sr[r] = dSt[(ty * 4 + r) * PLD + qq];
       }
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
@@ -372,7 +399,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
           dv_acc[r][c] = fmaf(pr[r], oc[c], dv_acc[r][c]);
-          dk_acc[r][c] = fmaf(sr[r], qc[c], dk_acc[r][c]);  // Q is scaled
+          dk_acc[r][c] = fmaf(sr[r], qc[c], dk_acc[r][c]);
         }
     }
   }
@@ -385,16 +412,16 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < DC; ++c) {
       const int col = tx + 16 * c;
       if (col >= d) continue;
-      store(dk + base + (size_t)kp * d + col, dk_acc[r][c]);
-      store(dv + base + (size_t)kp * d + col, dv_acc[r][c]);
+      store(dk + base + (index_t)kp * d + col, dk_acc[r][c] * scale);
+      store(dv + base + (index_t)kp * d + col, dv_acc[r][c]);
     }
   }
 }
 
 // One block per (query tile, batch-head), the layout of the forward; dS
 // goes through shared memory to the product over keys.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int D, int TILE>
+__global__ void __launch_bounds__(Tiling<TILE>::kThreads)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -402,23 +429,25 @@ __global__ void __launch_bounds__(kThreads)
                     int d, float scale, int causal, int window) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
+  constexpr int KC = Tiling<TILE>::kCols;
+  constexpr int PLD = Tiling<TILE>::kPLD;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* dOs = Qs + kTile * LD;
-  float* Ks = dOs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* dSs = Vs + kTile * LD;
+  float* dOs = Qs + TILE * LD;
+  float* Ks = dOs + TILE * LD;
+  float* Vs = Ks + TILE * LD;
+  float* dSs = Vs + TILE * LD;
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int bh = blockIdx.x;
+  const index_t bh = blockIdx.x;
   const int i = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
-  const size_t base = (size_t)bh * S * d;
-  const size_t row_base = (size_t)bh * S;
-  const int q0 = i * kTile;
+  const index_t base = bh * S * d;
+  const index_t row_base = bh * S;
+  const int q0 = i * TILE;
 
-  load_tile<T, D>(Qs, q + base, q0, S, d, scale);
-  load_tile<T, D>(dOs, dout + base, q0, S, d, 1.0f);
+  load_tile<T, D, TILE>(Qs, q + base, q0, S, d, scale);
+  load_tile<T, D, TILE>(dOs, dout + base, q0, S, d, 1.0f);
   float lr[4], dr[4], dq_acc[4][DC];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -430,36 +459,36 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   int lo, hi;
-  key_tile_range(i, S, causal, window, &lo, &hi);
+  key_tile_range<TILE>(i, S, causal, window, &lo, &hi);
   for (int j = lo; j < hi; ++j) {
-    const int k0 = j * kTile;
+    const int k0 = j * TILE;
     __syncthreads();
-    load_tile<T, D>(Ks, k + base, k0, S, d, 1.0f);
-    load_tile<T, D>(Vs, v + base, k0, S, d, 1.0f);
+    load_tile<T, D, TILE>(Ks, k + base, k0, S, d, 1.0f);
+    load_tile<T, D, TILE>(Vs, v + base, k0, S, d, 1.0f);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[4][KC], dp[4][KC];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.0f;
+      for (int c = 0; c < KC; ++c) s[r][c] = dp[r][c] = 0.0f;
 #pragma unroll 4
     for (int kk = 0; kk < D; ++kk) {
-      float qr[4], orow[4], kc[4], vc[4];
+      float qr[4], orow[4], kc[KC], vc[KC];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         qr[r] = Qs[(ty * 4 + r) * LD + kk];
         orow[r] = dOs[(ty * 4 + r) * LD + kk];
       }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < KC; ++c) {
         kc[c] = Ks[(tx + 16 * c) * LD + kk];
         vc[c] = Vs[(tx + 16 * c) * LD + kk];
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < KC; ++c) {
           s[r][c] = fmaf(qr[r], kc[c], s[r][c]);
           dp[r][c] = fmaf(orow[r], vc[c], dp[r][c]);
         }
@@ -468,19 +497,19 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < 4; ++r) {
       const int qp = q0 + ty * 4 + r;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < KC; ++c) {
         const bool vis = visible(qp, k0 + tx + 16 * c, S, causal, window);
         const float p = vis ? expf(s[r][c] - lr[r]) : 0.0f;
-        dSs[(ty * 4 + r) * kPLD + tx + 16 * c] = p * (dp[r][c] - dr[r]);
+        dSs[(ty * 4 + r) * PLD + tx + 16 * c] = p * (dp[r][c] - dr[r]);
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
+    for (int kk = 0; kk < TILE; ++kk) {
       float sr[4], kv[DC];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) sr[r] = dSs[(ty * 4 + r) * kPLD + kk];
+      for (int r = 0; r < 4; ++r) sr[r] = dSs[(ty * 4 + r) * PLD + kk];
 #pragma unroll
       for (int c = 0; c < DC; ++c) kv[c] = Ks[kk * LD + tx + 16 * c];
 #pragma unroll
@@ -497,22 +526,23 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = tx + 16 * c;
-      if (col < d) store(dq + base + (size_t)qp * d + col, dq_acc[r][c] * scale);
+      if (col < d) store(dq + base + (index_t)qp * d + col, dq_acc[r][c] * scale);
     }
   }
 }
 
-// Launches `kernel` with `floats` of dynamic shared memory (above 48 KB a
-// kernel must be allowed it first, or the launch is refused).
-template <typename Kernel, typename... Args>
+// Launches `kernel` on a (bh, S / TILE) grid with `floats` of dynamic shared
+// memory (above 48 KB a kernel must be allowed it first, or the launch is
+// refused).
+template <int TILE, typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, size_t floats, int bh, int S,
                    cudaStream_t stream, Args... args) {
   const int bytes = static_cast<int>(floats * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, num_tiles(S));
-  kernel<<<grid, kThreads, bytes, stream>>>(args...);
+  const dim3 grid(bh, num_tiles(S, TILE));
+  kernel<<<grid, Tiling<TILE>::kThreads, bytes, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -533,49 +563,54 @@ struct Call {
 
 enum Which { kFwd = 0, kDkv = 1, kDq = 2 };
 
-template <typename T, int D>
+template <typename T, int D, int TILE>
 cudaError_t run(int which, const Call& a) {
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
+  if (num_tiles(a.S, TILE) > 65535) return cudaErrorInvalidValue;  // grid.y
   switch (which) {
     case kFwd:
-      return launch(flash_fwd_kernel<T, D>, fwd_smem_floats<D>(), a.bh, a.S,
-                    a.stream, q, k, v, static_cast<T*>(a.out), a.lse_out, a.S,
-                    a.d, a.scale, a.causal, a.window);
+      return launch<TILE>(flash_fwd_kernel<T, D, TILE>, fwd_smem_floats<D, TILE>(),
+                          a.bh, a.S, a.stream, q, k, v, static_cast<T*>(a.out),
+                          a.lse_out, a.S, a.d, a.scale, a.causal, a.window);
     case kDkv:
-      return launch(flash_dkv_kernel<T, D>, dkv_smem_floats<D>(), a.bh, a.S,
-                    a.stream, q, k, v, dout, a.lse_in, a.delta,
-                    static_cast<T*>(a.out), static_cast<T*>(a.out2), a.S, a.d,
-                    a.scale, a.causal, a.window);
+      return launch<TILE>(flash_dkv_kernel<T, D, TILE>, dkv_smem_floats<D, TILE>(),
+                          a.bh, a.S, a.stream, q, k, v, dout, a.lse_in, a.delta,
+                          static_cast<T*>(a.out), static_cast<T*>(a.out2), a.S,
+                          a.d, a.scale, a.causal, a.window);
     case kDq:
-      return launch(flash_dq_kernel<T, D>, dq_smem_floats<D>(), a.bh, a.S,
-                    a.stream, q, k, v, dout, a.lse_in, a.delta,
-                    static_cast<T*>(a.out), a.S, a.d, a.scale, a.causal,
-                    a.window);
+      return launch<TILE>(flash_dq_kernel<T, D, TILE>, dq_smem_floats<D, TILE>(),
+                          a.bh, a.S, a.stream, q, k, v, dout, a.lse_in, a.delta,
+                          static_cast<T*>(a.out), a.S, a.d, a.scale, a.causal,
+                          a.window);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// The template width D and the tile for head dim d (`tile_rows` in
+// ops/flash_attention.py mirrors the tile).
 template <typename T>
 cudaError_t pick_width(int which, const Call& a) {
-  if (a.d <= 16) return run<T, 16>(which, a);
-  if (a.d <= 32) return run<T, 32>(which, a);
-  if (a.d <= 64) return run<T, 64>(which, a);
-  if (a.d <= 128) return run<T, 128>(which, a);
+  if (a.d <= 16) return run<T, 16, 64>(which, a);
+  if (a.d <= 32) return run<T, 32, 64>(which, a);
+  if (a.d <= 64) return run<T, 64, 64>(which, a);
+  if (a.d <= 128) return run<T, 128, 64>(which, a);
+  if (a.d <= 256) return run<T, 256, 32>(which, a);
   return cudaErrorInvalidValue;
 }
 
 int dispatch(int which, int dtype, const Call& a) {
-  if (a.bh <= 0 || a.S <= 0 || a.d <= 0 || num_tiles(a.S) > 65535)
-    return cudaErrorInvalidValue;
+  if (a.bh <= 0 || a.S <= 0 || a.d <= 0) return cudaErrorInvalidValue;
   switch (dtype) {
     case kFloat32:
       return pick_width<float>(which, a);
     case kBFloat16:
       return pick_width<__nv_bfloat16>(which, a);
+    case kFloat16:
+      return pick_width<__half>(which, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -585,9 +620,9 @@ int dispatch(int which, int dtype, const Call& a) {
 
 // Each entry point launches one kernel on `stream` and returns
 // cudaGetLastError() (0 on success).  q, k, v, dout and the outputs are
-// contiguous (bh, S, d) device arrays of one dtype (0 float32, 1 bfloat16),
-// d <= 128; lse and delta are contiguous (bh, S) float32.  window <= 0 means
-// no window.  The caller allocates every output.
+// contiguous (bh, S, d) device arrays of one dtype (0 float32, 1 bfloat16,
+// 2 float16), d <= 256; lse and delta are contiguous (bh, S) float32.
+// window <= 0 means no window.  The caller allocates every output.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, float* lse, int bh, int S, int d,
                          float scale, int dtype, int causal, int window,

@@ -29,14 +29,22 @@ import torch
 from tpu_dist_torch.ops import _build
 
 NEG_INF = -1e30
-TILE = 64  # the kernels' query and key tile (the TPU kernels' bq, bk: 256)
-MAX_HEAD_DIM = 128
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 64  # the kernels' query and key tile up to d = 128 (the TPU kernels' bq, bk: 256)
+MAX_HEAD_DIM = 256
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MAX_GRID_Y = 65535  # the kernels' grid is (bh, S / tile)
 # Plain versions form (chunk, S, S) float32 blocks; this many elements each.
 _REFERENCE_BLOCK = 1 << 27
 
 
 # ---------------------------------------------------------------- tile ranges
+
+
+def tile_rows(d: int) -> int:
+    """The kernels' query and key tile for head dim ``d``: 64 rows, and 32
+    at d > 128, where four 64-row float32 tiles would not fit in a block's
+    shared memory."""
+    return TILE if d <= 128 else TILE // 2
 
 
 def key_tile_range(
@@ -179,8 +187,8 @@ def _check_operands(name, blocks, rows):
     if not all(t.is_cuda and t.device == first.device for t in blocks + rows):
         raise ValueError(f"{name} takes CUDA tensors on one device")
     if first.dtype not in _DTYPE_CODES or any(t.dtype != first.dtype for t in blocks):
-        raise TypeError(f"{name} takes float32 or bfloat16 q/k/v of one dtype, got "
-                        f"{[t.dtype for t in blocks]}")
+        raise TypeError(f"{name} takes float32, bfloat16 or float16 q/k/v of one "
+                        f"dtype, got {[t.dtype for t in blocks]}")
     if any(t.dtype != torch.float32 for t in rows):
         raise TypeError(f"{name} takes float32 lse and delta, got {[t.dtype for t in rows]}")
     if first.dim() != 3 or any(t.shape != first.shape for t in blocks):
@@ -193,8 +201,9 @@ def _check_operands(name, blocks, rows):
         raise ValueError(f"{name} takes contiguous tensors")
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"{name} takes head dims 1..{MAX_HEAD_DIM}, got {d}")
-    if bh * S * d > 2**31 - 1:
-        raise ValueError(f"{name} shape {(bh, S, d)} exceeds 32-bit indexing")
+    if bh > 2**31 - 1 or -(-S // tile_rows(d)) > _MAX_GRID_Y:
+        raise ValueError(f"{name} shape {(bh, S, d)} exceeds the kernel's grid "
+                         f"(bh < 2^31, S <= {_MAX_GRID_Y * tile_rows(d)})")
     return bh, S, d
 
 
@@ -319,7 +328,7 @@ def flash_attention(
     """Attention over ``(..., heads, S, d)`` without materializing (S, S).
 
     ``bq``/``bk`` are the JAX kernel's blocks: S must divide by them after
-    they clamp to S, as there; the CUDA kernels use their own 64-row tiles
+    they clamp to S, as there; the CUDA kernels use their own 64- or 32-row tiles
     and take any S.  ``window=w`` adds the band ``k > q - w``.
     Differentiable: the backward runs the dK/dV and dQ kernels."""
     _validate(q, k, v, bq, bk, window, window_first=False)

@@ -1,6 +1,6 @@
 """`tpu_dist_torch.train` — optimizers, schedules, FLOP counts and trainers."""
 
-from tpu_dist_torch.train import flops, schedule
+from tpu_dist_torch.train import flops, metrics, schedule
 from tpu_dist_torch.train.lm_trainer import LMEpochStats, LMTrainConfig, LMTrainer
 from tpu_dist_torch.train.optim import (
     Optimizer,
@@ -25,6 +25,7 @@ __all__ = [
     "decay_mask_default",
     "flops",
     "global_norm",
+    "metrics",
     "schedule",
     "sgd",
 ]

@@ -10,11 +10,12 @@ from __future__ import annotations
 
 import torch
 
-# name -> {"bfloat16": FLOP/s on the tensor cores, "float32": FLOP/s
-# outside them, "hbm_bytes_per_s": device memory bandwidth}
+# name -> {"bfloat16", "float16": FLOP/s on the tensor cores, "float32":
+# FLOP/s outside them, "hbm_bytes_per_s": device memory bandwidth}
 PEAKS: dict[str, dict[str, float]] = {
     "NVIDIA H100 80GB HBM3": {
         "bfloat16": 989e12,
+        "float16": 989e12,
         "float32": 67e12,
         "hbm_bytes_per_s": 3.35e12,
     },
@@ -22,8 +23,8 @@ PEAKS: dict[str, dict[str, float]] = {
 
 
 def peak_flops(device_name: str, dtype: torch.dtype = torch.bfloat16) -> float | None:
-    """Dense peak FLOP/s of the card for operands of ``dtype`` (bfloat16 or
-    float32), or None for a card the table does not hold."""
+    """Dense peak FLOP/s of the card for operands of ``dtype`` (bfloat16,
+    float16 or float32), or None for a card the table does not hold."""
     peaks = PEAKS.get(device_name)
     return None if peaks is None else peaks[str(dtype).removeprefix("torch.")]
 

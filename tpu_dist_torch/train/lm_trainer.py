@@ -8,10 +8,11 @@ loss, and AdamW.  Per epoch the JAX package's order
 the mean loss, tokens/s and, given ``val_windows``, the validation
 perplexity.
 
-``compute_dtype="bfloat16"`` runs the forward and backward on a bfloat16
-copy of the float32 master parameters, cast where the JAX package casts
-(the whole tree, before the forward), and the gradients land on the
-masters; the loss is a float32 log-softmax of the bfloat16 logits.
+``compute_dtype`` (``"float32"``, ``"bfloat16"`` or ``"float16"``) runs the
+forward and backward on a copy of the float32 master parameters in that
+type, cast where the JAX package casts (every floating leaf, before the
+forward), and the gradients land on the masters; the loss is a float32
+log-softmax of the logits.
 
 Not ported yet (ROADMAP queue 1, item 8): fsdp, zero1, tensor, sequence,
 pipeline and MoE modes, compressed gradients, partition rules, the NaN
@@ -32,10 +33,15 @@ from torch.func import functional_call
 
 from tpu_dist_torch.device import resolve_device
 from tpu_dist_torch.models.transformer_lm import lm_loss, lm_perplexity
-from tpu_dist_torch.parallel.data_parallel import average_gradients
+from tpu_dist_torch.parallel.data_parallel import average_gradients, broadcast_parameters
 from tpu_dist_torch.train.optim import Optimizer, adamw, clip_by_global_norm
 
-_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16}
+# the floating dtypes `jnp.dtype(compute_dtype)` names in the JAX trainer
+_COMPUTE_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
 
 
 @dataclass
@@ -63,9 +69,11 @@ class LMEpochStats:
 class LMTrainer:
     """Data-parallel LM training over ``(N, S)`` token windows.
 
-    The model arrives initialized (every rank from the same seed); the
-    trainer moves it to ``device`` and keeps its float32 parameters as the
-    masters the optimizer updates in place."""
+    The model arrives initialized; the trainer moves it to ``device``, in a
+    process group overwrites every rank's parameters and buffers with rank
+    0's (the replicas start equal however each rank built the model), and
+    keeps its float32 parameters as the masters the optimizer updates in
+    place."""
 
     def __init__(
         self,
@@ -95,6 +103,8 @@ class LMTrainer:
         else:
             self.rank, self.world = 0, 1
         self.lm = lm.to(self.device)
+        if self.distributed:
+            broadcast_parameters(self.lm)
         self.params = dict(self.lm.named_parameters())
         self.optimizer = optimizer or adamw(self.config.lr)
         if self.config.grad_clip is not None:

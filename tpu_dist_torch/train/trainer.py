@@ -22,7 +22,7 @@ from tpu_dist_torch.comm.collectives import all_reduce
 from tpu_dist_torch.data.loader import DistributedLoader
 from tpu_dist_torch.device import resolve_device
 from tpu_dist_torch.nn.losses import nll_loss
-from tpu_dist_torch.parallel.data_parallel import average_gradients
+from tpu_dist_torch.parallel.data_parallel import average_gradients, broadcast_parameters
 from tpu_dist_torch.train.optim import sgd
 
 
@@ -50,9 +50,11 @@ class EpochStats:
 class Trainer:
     """Data-parallel SGD for a `tpu_dist_torch.nn.Sequential` classifier.
 
-    The model arrives initialized (every rank builds it from the same
-    seed); the Trainer moves it to ``device``.  ``seed`` drives the data
-    order and, offset per rank, the dropout generator."""
+    The model arrives initialized; the Trainer moves it to ``device`` and,
+    in a process group, overwrites every rank's parameters and buffers
+    with rank 0's, so the replicas start equal however each rank built its
+    model.  ``seed`` drives the data order and, offset per rank, the
+    dropout generator."""
 
     def __init__(
         self,
@@ -69,6 +71,8 @@ class Trainer:
         else:
             self.rank, self.world = 0, 1
         self.model = model.to(self.device)
+        if self.distributed:
+            broadcast_parameters(self.model)
         self.params = list(self.model.parameters())
         self.optimizer = sgd(self.params, self.config.lr, self.config.momentum)
         self.generator = torch.Generator(self.device).manual_seed(
