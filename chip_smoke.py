@@ -7,7 +7,8 @@ Run from the root of a checkout.  Phases, in order; any failure raises and
 the exit code is nonzero:
 
 [env]     Python, torch, CUDA; the card's name and power limit; TF32 off.
-[build]   the nvcc build of every kernel source, all started together.
+[build]   the nvcc build of every kernel source, all started together, with
+          each build's seconds and ptxas's registers and spills.
 [matmul]  the fused-dense kernel against its plain version on the card, at
           the main path's four shapes and a few others; times from CUDA
           events, and the least time the card could take (bound_ms).
@@ -16,22 +17,29 @@ the exit code is nonzero:
           synthetic MNIST: 468 steps of 128, then evaluation), its kernel
           launch count, loss and accuracy; then one training step from the
           same state on the card and on the CPU.
-[flash]   the three flash-attention kernels (forward, dK/dV, dQ) against
-          their plain versions on the card: the LM path's shape (q, k, v
-          (16, 12, 1024, 64) bfloat16, causal), float32, float16, windowed,
-          ragged and head-dim-256 (float32, bfloat16, float16) cases, and
-          arrays past 2^31 elements; each kernel's time beside its bound,
-          its plain version's and, for the forward and forward + backward,
-          the time of ``scaled_dot_product_attention`` on the same inputs;
+[flash]   the flash-attention kernels of each case's route (`flash_route`:
+          the tensor-core forward and dK/dV for bfloat16 and float16 at
+          head dims 64 and 128, the SIMT ones otherwise; dQ SIMT) against
+          their plain versions on the card, the launch counts showing which
+          ran: the LM path's shape (q, k, v (16, 12, 1024, 64) bfloat16,
+          causal), float32, float16, windowed, dense, ragged, head-dim-128
+          (bfloat16, S 2048) and head-dim-256 (float32, bfloat16, float16)
+          cases, and arrays past 2^31 elements; each kernel's time and
+          TFLOP/s beside its bound, its plain version's and, for the
+          forward and forward + backward, the time of
+          ``scaled_dot_product_attention`` on the same inputs, and for the
+          backward pair (dK/dV + dQ) SDPA's forward + backward less its
+          forward; at the LM shape the SIMT forward and dK/dV timed too;
           the count of dK elements that differ from the plain version at
           d = 8, float32.
 [lm]      ``LMTrainer.fit`` of the GPT-2-small-class TransformerLM (vocab
           32768, dim 768, depth 12, heads 12, rope, seq 1024, global batch
           16, bfloat16 compute) with TPU_DIST_FLASH=1 for two epochs, its
-          flash launch counts (12 of each kernel per step), tokens/s and
+          flash launch counts (12 per step of the tensor-core forward and
+          dK/dV and of dQ, none of the SIMT forward and dK/dV), tokens/s and
           losses; the kernels' share of a profiled step; then one step of a
-          small LM on the card and on the CPU, losses and gradients
-          compared.
+          small float32 LM on the card (the SIMT route: its launch counts)
+          and on the CPU, losses and gradients compared.
 [ring]    the ring all-reduce kernel under ``comm.spmd`` at worlds 2, 3 and
           4, every rank a process on this one card (the Gloo control group
           carries the handle exchange; the kernel moves the data): each
@@ -68,7 +76,7 @@ BF16_TOL = dict(rtol=1e-2, atol=1e-2)  # one bf16 rounding of the output
 # 700 W, `tpu_dist_torch.train.flops.PEAKS`): HBM bytes/s, and FLOP/s by
 # operand type (float32 outside the tensor cores, bf16 on them).
 PEAK_CARD = "NVIDIA H100 80GB HBM3"
-SOURCES = ("matmul", "flash_attention", "ring")  # csrc/<name>.cu
+SOURCES = ("matmul", "flash_attention", "flash_attention_sm90", "ring")  # csrc/<name>.cu
 
 
 def check(ok: bool, what: str) -> None:
@@ -279,13 +287,16 @@ def main_path(device, ops, card_name) -> dict:
     return {"launches": launches}
 
 
-FLASH_REPLACES = {
-    "flash_fwd": "tpu_dist/ops/flash_attention.py:47",
-    "flash_dkv": "tpu_dist/ops/flash_attention.py:184",
-    "flash_dq": "tpu_dist/ops/flash_attention.py:233",
+FLASH_REPLACES = {  # wrapper: (TPU kernel, CUDA source)
+    "flash_fwd_sm90": ("tpu_dist/ops/flash_attention.py:47", "flash_attention_sm90.cu"),
+    "flash_dkv_sm90": ("tpu_dist/ops/flash_attention.py:184", "flash_attention_sm90.cu"),
+    "flash_dq": ("tpu_dist/ops/flash_attention.py:233", "flash_attention.cu"),
+    "flash_fwd_simt": ("tpu_dist/ops/flash_attention.py:47", "flash_attention.cu"),
+    "flash_dkv_simt": ("tpu_dist/ops/flash_attention.py:184", "flash_attention.cu"),
 }
 # one attention call of the [lm] path: (batch, heads, S, head_dim)
 LM_ATTENTION = (16, 12, 1024, 64)
+LM_ROUTE = ("flash_fwd_sm90", "flash_dkv_sm90", "flash_dq")  # the kernels it launches
 
 
 def visible_fraction(S: int, causal: bool, window, flops, fa) -> float:
@@ -298,14 +309,16 @@ def visible_fraction(S: int, causal: bool, window, flops, fa) -> float:
 
 
 def flash_cases(device, fa, F, flops, checks) -> list[dict]:
-    """Each flash kernel against its plain version on the same inputs
-    (`ops.checks.check_flash_kernels`: the forward's out and lse, then
-    dK/dV and dQ from the plain forward's lse and D = rowsum(dO * out)).
-    Times are CUDA events around eager launches (each launch runs for
-    milliseconds, far above its launch cost).  The bound of each kernel is
-    its own products at the operand type's peak against its bytes: 2
-    products forward, 4 for dK/dV (it recomputes P), 3 for dQ, each
-    2*bh*S*S*d times the visible fraction."""
+    """Each flash kernel of the case's route against its plain version on
+    the same inputs (`ops.checks.check_flash_kernels`: the forward's out
+    and lse, then dK/dV and dQ from the plain forward's lse and D =
+    rowsum(dO * out); the launch counts show the route's kernels ran).
+    Times are CUDA events around eager launches (each launch runs for a
+    tenth of a millisecond or more, above its launch cost).  The bound of
+    each kernel is its own products at the operand type's peak against its
+    bytes: 2 products forward, 4 for dK/dV (it recomputes P), 3 for dQ,
+    each 2*bh*S*S*d times the visible fraction; ``tflops`` is those
+    products over the kernel's time."""
     cases = [
         ("lm", LM_ATTENTION, torch.bfloat16, True, None),  # every [lm] call
         ("f32", LM_ATTENTION, torch.float32, True, None),
@@ -313,6 +326,8 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
         ("window", LM_ATTENTION, torch.bfloat16, True, 256),
         ("dense", (2, 12, 1024, 64), torch.float32, False, None),
         ("ragged", (2, 3, 96, 8), torch.float32, True, 40),
+        ("ragged_bf16", (2, 6, 1000, 128), torch.bfloat16, True, None),
+        ("d128_bf16", (4, 16, 2048, 128), torch.bfloat16, True, None),
         ("d256_f32", (2, 4, 1024, 256), torch.float32, True, None),
         ("d256_bf16", (2, 4, 1024, 256), torch.bfloat16, True, None),
         ("d256_f16", (2, 4, 1024, 256), torch.float16, True, None),
@@ -324,7 +339,7 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
         kw = dict(causal=causal, window=window)
         d8_f32 = d == 8 and dtype == torch.float32
         checked = checks.check_flash_kernels(q, k, v, go, **kw, exact_dk=d8_f32)
-        errs, tol = checked["max_abs_err"], checked["tol"]
+        errs, tol, route = checked["max_abs_err"], checked["tol"], checked["route"]
         want_lse, delta = checked["lse"], checked["delta"]
         if d8_f32:
             print(f"[flash] dK elements that differ from the plain version at d = 8 float32: "
@@ -339,28 +354,31 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
         mask = fa.visible_mask(S, causal=causal, window=window, device=device)
         library_kw = (dict(is_causal=causal) if window is None else dict(attn_mask=mask))
         library = lambda: F.scaled_dot_product_attention(q4, k4, v4, **library_kw)  # noqa: E731
-        calls = {
-            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
-                          lambda: fa.flash_fwd_reference(q, k, v, **kw), library),
-            "flash_dkv": (lambda: fa.flash_dkv(q, k, v, go, want_lse, delta, **kw),
-                          lambda: fa.flash_dkv_reference(q, k, v, go, want_lse, delta, **kw),
-                          None),
-            "flash_dq": (lambda: fa.flash_dq(q, k, v, go, want_lse, delta, **kw),
-                         lambda: fa.flash_dq_reference(q, k, v, go, want_lse, delta, **kw),
-                         None),
-        }
+        fwd_args, bwd_args = (q, k, v), (q, k, v, go, want_lse, delta)
+        plain = {"flash_fwd": lambda: fa.flash_fwd_reference(*fwd_args, **kw),
+                 "flash_dkv": lambda: fa.flash_dkv_reference(*bwd_args, **kw),
+                 "flash_dq": lambda: fa.flash_dq_reference(*bwd_args, **kw)}
+        # (function, wrapper, its error against the plain version)
+        calls = [("flash_fwd", f"flash_fwd_{route}", errs["flash_fwd"]),
+                 ("flash_dkv", f"flash_dkv_{route}", errs["flash_dkv"]),
+                 ("flash_dq", "flash_dq", errs["flash_dq"])]
+        if label == "lm":  # the SIMT kernels on the same inputs, for comparison
+            calls += simt_errors(fa, checks, fwd_args, bwd_args, kw)
         iters = 10 if S >= 1024 else 50
         shape = {"case": label, "q": [b, h, S, d], "dtype": str(dtype)[6:],
                  "causal": causal, "window": window}
-        for name, (kernel, plain, lib) in calls.items():
-            bound_ms, bound_by = bound(*work[name], dtype)
+        for fn, name, err in calls:
+            kernel = getattr(fa, name)
+            args = fwd_args if fn == "flash_fwd" else bwd_args
+            bound_ms, bound_by = bound(*work[fn], dtype)
+            ms = time_ms(lambda: kernel(*args, **kw), iters, graph=False)
             rows.append({
-                "kernel": name, **shape, "max_abs_err": errs[name], "tol": tol,
-                "dk_differing": checked["dk_differing"] if name == "flash_dkv" else None,
+                "kernel": name, **shape, "max_abs_err": err, "tol": tol,
+                "dk_differing": checked["dk_differing"] if name == f"flash_dkv_{route}" else None,
                 "timing": f"CUDA events around {iters} eager launches",
-                "ms": time_ms(kernel, iters, graph=False),
-                "plain_ms": time_ms(plain, iters, graph=False),
-                "library_ms": None if lib is None else time_ms(lib, iters, graph=False),
+                "ms": ms, "tflops": work[fn][1] / ms / 1e9,
+                "plain_ms": time_ms(plain[fn], iters, graph=False),
+                "library_ms": time_ms(library, iters, graph=False) if fn == "flash_fwd" else None,
                 "bound_ms": bound_ms, "bound_by": bound_by,
             })
             print("[flash]", json.dumps(rows[-1]), flush=True)
@@ -368,7 +386,7 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
         # forward + backward through the autograd Function (its D and the
         # cast of dO included) against SDPA's forward + backward
         leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
-        blocks = min(256, S)
+        blocks = 256 if S % 256 == 0 else S  # the JAX block check: S divides by them
 
         def port_step():
             o = fa.flash_attention(*leaves, causal=causal, window=window, bq=blocks, bk=blocks)
@@ -386,21 +404,62 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
 
         # reads q, k, v, dO and writes out, dq, dk, dv; 9 products in all
         bound_ms, bound_by = bound(8 * block, sum(w[1] for w in work.values()), dtype)
+        library_step_ms = time_ms(library_step, iters, graph=False)
         rows.append({
             "kernel": "flash fwd+bwd", **shape, "timing": f"CUDA events around {iters} "
             "eager forward + backward calls",
             "ms": time_ms(port_step, iters, graph=False),
             "plain_ms": time_ms(plain_step, iters, graph=False),
-            "library_ms": time_ms(library_step, iters, graph=False),
+            "library_ms": library_step_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
         print("[flash]", json.dumps(rows[-1]), flush=True)
-        del q, k, v, go, checked, want_lse, delta, leaves
+        rows.append(backward_pair(rows, label, route, library_step_ms, work, dtype))
+        print("[flash]", json.dumps(rows[-1]), flush=True)
+        del q, k, v, go, checked, want_lse, delta, leaves, fwd_args, bwd_args, plain
         torch.cuda.empty_cache()
     past = checks.check_flash_past_2_31(device)
     print("[flash]", json.dumps({"case": "past 2^31", **past}), flush=True)
     torch.cuda.empty_cache()
     return rows
+
+
+def simt_errors(fa, checks, fwd_args, bwd_args, kw) -> list:
+    """The SIMT forward and dK/dV on inputs that the tensor-core route
+    takes, held to the plain versions (its tolerance): what they are timed
+    beside."""
+    tol = checks.FLASH_TOL[fwd_args[0].dtype]
+    out, _ = fa.flash_fwd_simt(*fwd_args, **kw)
+    dk, dv = fa.flash_dkv_simt(*bwd_args, **kw)
+    want_out, _ = fa.flash_fwd_reference(*fwd_args, **kw)
+    want_dk, want_dv = fa.flash_dkv_reference(*bwd_args, **kw)
+    torch.cuda.synchronize()
+    errs = []
+    for got, want in [(out, want_out), (dk, want_dk), (dv, want_dv)]:
+        torch.testing.assert_close(got, want, **tol)
+        errs.append((got.float() - want.float()).abs().max().item())
+    return [("flash_fwd", "flash_fwd_simt", errs[0]),
+            ("flash_dkv", "flash_dkv_simt", max(errs[1:]))]
+
+
+def backward_pair(rows, label, route, library_step_ms, work, dtype) -> dict:
+    """dK/dV + dQ of the route beside the one library yardstick of the
+    backward: SDPA's forward + backward less its forward (its backward is
+    one autograd node that computes dQ, dK and dV together)."""
+    def row_of(name):
+        return next(r for r in rows if r["case"] == label and r["kernel"] == name)
+
+    fwd, dkv, dq = row_of(f"flash_fwd_{route}"), row_of(f"flash_dkv_{route}"), row_of("flash_dq")
+    bound_ms, bound_by = bound(work["flash_dkv"][0] + work["flash_dq"][0],
+                               work["flash_dkv"][1] + work["flash_dq"][1], dtype)
+    return {
+        "kernel": "flash backward pair (dK/dV + dQ)", "case": label,
+        "kernels": [dkv["kernel"], "flash_dq"], "ms": dkv["ms"] + dq["ms"],
+        "plain_ms": dkv["plain_ms"] + dq["plain_ms"],
+        "library_ms": library_step_ms - fwd["library_ms"],
+        "library": "SDPA forward + backward less SDPA forward, same inputs",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
 
 
 def profile_steps(trainer, tokens, steps: int, card_name: str) -> dict:
@@ -474,14 +533,13 @@ def lm_path(device, fa, card_name) -> dict:
     print(f"[lm] LMTrainer.fit: TransformerLM vocab 32768, dim 768, depth {depth}, heads 12, "
           f"rope, {n_params} params; seq {seq}, global batch {batch}, bfloat16 compute, "
           f"TPU_DIST_FLASH=1; {epochs} epochs of {steps_per_epoch} steps", flush=True)
-    counters = (fa.flash_fwd, fa.flash_dkv, fa.flash_dq)
-    for kernel in counters:
+    for kernel in fa.KERNELS:
         kernel.launches = 0
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     history = trainer.fit(windows, epochs=epochs)
     wall = time.perf_counter() - t0
-    launches = {kernel.__name__: kernel.launches for kernel in counters}
+    launches = {kernel.__name__: kernel.launches for kernel in fa.KERNELS}
     steps = epochs * steps_per_epoch
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     step_flops = lm_step_flops(flops, batch, seq, 768, depth, 12, 32768)
@@ -492,10 +550,11 @@ def lm_path(device, fa, card_name) -> dict:
               f"{stats.tokens_per_sec} tokens/s, {stats.seconds} s, {rate / 1e12} model "
               f"TFLOP/s ({step_flops / 1e12} TFLOP per step), {rate / peak} of the bf16 "
               f"peak, on {card_name}", flush=True)
+    # bfloat16 at head dim 64: the tensor-core forward and dK/dV, and dQ
+    expected = {name: depth * steps if name in LM_ROUTE else 0 for name in launches}
     print(f"[lm] fit wall time {wall} s; peak device memory {peak_gb} GB; flash launches "
-          f"{launches} (expected {depth} x {steps} steps = {depth * steps} each)", flush=True)
-    for name, n in launches.items():
-        check(n == depth * steps, f"{name} launched {n} times, not {depth * steps}")
+          f"{launches} (expected {expected}: {depth} x {steps} steps)", flush=True)
+    check(launches == expected, f"flash launches {launches}, not {expected}")
     check(all(math.isfinite(s.mean_loss) for s in history), "non-finite epoch loss")
     check(history[1].mean_loss < history[0].mean_loss,
           f"epoch 1 mean loss {history[1].mean_loss} not below epoch 0's "
@@ -511,7 +570,14 @@ def lm_path(device, fa, card_name) -> dict:
                       LMTrainConfig(global_batch=2, log=lambda line: None), device=dev)
             for dev in (device, "cpu")]
     tokens = models.synthetic_tokens(2, 256, 512, seed=3)
+    for kernel in fa.KERNELS:
+        kernel.launches = 0
     loss_card = pair[0].loss_and_grads(tokens.to(device)).item()
+    f32_launches = {kernel.__name__: kernel.launches for kernel in fa.KERNELS}
+    # float32: the SIMT route, one call of each kernel per block
+    f32_expected = {name: 0 if name.endswith("_sm90") else 2 for name in f32_launches}
+    check(f32_launches == f32_expected,
+          f"small-LM flash launches {f32_launches}, not {f32_expected}")
     loss_cpu = pair[1].loss_and_grads(tokens).item()
     grad_diff = 0.0
     for name, p in pair[0].params.items():
@@ -522,9 +588,11 @@ def lm_path(device, fa, card_name) -> dict:
         grad_diff = max(grad_diff, (p.grad.cpu() - want).abs().max().item())
     print(f"[lm] one step of a small LM (vocab 512, dim 128, depth 2, heads 2, seq 256, "
           f"batch 2, float32, TPU_DIST_FLASH=1): loss card {loss_card} cpu {loss_cpu} "
-          f"|diff| {abs(loss_card - loss_cpu)}; gradients max |diff| {grad_diff}", flush=True)
+          f"|diff| {abs(loss_card - loss_cpu)}; gradients max |diff| {grad_diff}; flash "
+          f"launches on the card {f32_launches}", flush=True)
     check(abs(loss_card - loss_cpu) <= 1e-5, "card and CPU losses differ by more than 1e-5")
-    return {"launches": launches, "history": history, "profile": profile}
+    return {"launches": launches, "f32_launches": f32_launches, "history": history,
+            "profile": profile}
 
 
 RING_WORLDS = (2, 3, 4)
@@ -644,17 +712,30 @@ def main() -> None:
                 "float32, epilogue none",
     }
     kernels = [kernel]
-    for name, replaces in FLASH_REPLACES.items():
-        row = next(r for r in flash_rows if r["kernel"] == name and r["case"] == "lm")
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "tpu_dist_torch/ops/csrc/flash_attention.cu",
-            "replaces": replaces, "launches": lm["launches"][name],
+    pair = next(r for r in flash_rows if r["case"] == "lm" and "pair" in r["kernel"])
+    for name, (replaces, source) in FLASH_REPLACES.items():
+        on_lm = name in LM_ROUTE  # else the SIMT route: float32, timed at the f32 case
+        row = next(r for r in flash_rows
+                   if r["kernel"] == name and r["case"] == ("lm" if on_lm else "f32"))
+        entry = {
+            "name": name, "route": "cuda", "source": f"tpu_dist_torch/ops/csrc/{source}",
+            "replaces": replaces,
+            "launches": lm["launches"][name] if on_lm else lm["f32_launches"][name],
             **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")},
+                                         "bound_by", "library_ms", "tflops")},
             "work": "one attention call of the [lm] path: q, k, v (16, 12, 1024, 64) "
-                    "bfloat16, causal; 12 calls per training step",
-        })
+                    "bfloat16, causal; 12 calls per training step" if on_lm else
+                    "q, k, v (16, 12, 1024, 64) float32, causal; launches: the [lm] small "
+                    "float32 LM step (2 blocks), which takes the SIMT route",
+        }
+        if name in ("flash_dkv_sm90", "flash_dq"):
+            entry["backward_pair"] = {
+                key: pair[key] for key in ("kernels", "ms", "library_ms", "library")}
+        if name in ("flash_fwd_sm90", "flash_dkv_sm90"):  # the same [lm] inputs, SIMT
+            simt = next(r for r in flash_rows
+                        if r["case"] == "lm" and r["kernel"] == name.replace("sm90", "simt"))
+            entry["simt_ms_same_inputs"] = simt["ms"]
+        kernels.append(entry)
     timing = ring["timing"]
     kernels.append({
         "name": "ring_all_reduce", "route": "cuda",

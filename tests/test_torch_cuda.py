@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: fused dense,
-the three flash-attention kernels (forward, dK/dV, dQ) and the ring
-all-reduce across processes.  The flash and ring checks are the port's own
+the flash-attention kernels (the tensor-core forward and dK/dV, the SIMT
+forward, dK/dV and dQ) and the ring all-reduce across processes.  The flash and ring checks are the port's own
 (`tpu_dist_torch.ops.checks`), which ``chip_smoke.py`` runs too.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
@@ -92,7 +92,8 @@ def test_wrapper_refuses_bad_input(card):
 
 # (causal, window): dense, causal, the causal band, and the one-sided band
 MASKS = [(False, None), (True, None), (True, 40), (False, 40)]
-FLASH_SHAPES = [(2, 64), (2, 128), (3, 96), (1, 1024)]  # (bh, S); 96 is ragged
+# (bh, S); 96, 129 and 1000 are ragged at every kernel's tile
+FLASH_SHAPES = [(2, 64), (2, 128), (3, 96), (1, 1024), (2, 129), (1, 1000)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
@@ -102,10 +103,13 @@ FLASH_SHAPES = [(2, 64), (2, 128), (3, 96), (1, 1024)]  # (bh, S); 96 is ragged
 @pytest.mark.parametrize("mask", MASKS, ids=lambda m: f"causal{int(m[0])}-w{m[1]}")
 def test_flash_kernels_match_plain_versions(card, mask, shape, d, dtype):
     """Every head dim up to 256 (32-row tiles at d = 256) and every input
-    type the JAX kernels take.  At d = 8 in float32, where the scale is no
-    power of two, dK equals the plain version bit for bit while the plain
-    version's product over the S queries is one in-order sum, as the
-    kernel's (S <= 128 here; cuBLAS splits the sum at S = 1024)."""
+    type the JAX kernels take, each through its route: bfloat16 and float16
+    at d = 64 and 128 through the tensor-core forward and dK/dV (the check
+    asserts which wrappers launched), the rest through the SIMT kernels.
+    At d = 8 in float32, where the scale is no power of two, dK equals the
+    plain version bit for bit while the plain version's product over the S
+    queries is one in-order sum, as the kernel's (S <= 128 here; cuBLAS
+    splits the sum at S = 1024)."""
     causal, window = mask
     q, k, v, go = checks.flash_inputs(*shape, d, dtype, card)
     checks.check_flash_kernels(q, k, v, go, causal=causal, window=window,
@@ -113,8 +117,25 @@ def test_flash_kernels_match_plain_versions(card, mask, shape, d, dtype):
 
 
 def test_flash_kernels_past_2_31_elements(card):
-    """(bh, S, d) bfloat16 arrays of more than 2^31 elements: 64-bit offsets."""
-    checks.check_flash_past_2_31(card)
+    """(bh, S, d) bfloat16 arrays of more than 2^31 elements at d = 128:
+    the tensor-core kernels' (d, S, bh) TMA coordinates and 64-bit stores,
+    and the SIMT dQ's 64-bit offsets."""
+    assert checks.check_flash_past_2_31(card)["route"] == "sm90"
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_sm90_is_the_same_from_run_to_run(card, d):
+    """No atomics: each block owns its output rows, so two runs of the
+    tensor-core forward and dK/dV on the same inputs agree bit for bit."""
+    q, k, v, go = checks.flash_inputs(24, 1024, d, torch.bfloat16, card, seed=7)
+    out, lse = fa.flash_fwd_sm90(q, k, v, causal=True)
+    delta = (go.float() * out.float()).sum(-1)
+    runs = [fa.flash_dkv_sm90(q, k, v, go, lse, delta, causal=True) for _ in range(3)]
+    again = fa.flash_fwd_sm90(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    for dk, dv in runs[1:]:
+        assert torch.equal(dk, runs[0][0]) and torch.equal(dv, runs[0][1])
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
 def _dense_attention(q, k, v, causal, window):
@@ -137,11 +158,10 @@ def test_flash_attention_grads_on_card(card, seq, mask):
     q, k, v = (torch.randn(2, 3, seq, 16, generator=g, device=card).requires_grad_()
                for _ in range(3))
     cot = torch.randn(2, 3, seq, 16, generator=g, device=card)
-    before = (fa.flash_fwd.launches, fa.flash_dkv.launches, fa.flash_dq.launches)
+    kernels = (fa.flash_fwd_simt, fa.flash_dkv_simt, fa.flash_dq)  # float32: SIMT
+    before = [kernel.launches for kernel in kernels]
     fa.flash_attention(q, k, v, causal=causal, window=window, bq=32, bk=32).backward(cot)
-    assert (fa.flash_fwd.launches, fa.flash_dkv.launches, fa.flash_dq.launches) == tuple(
-        n + 1 for n in before
-    )
+    assert [kernel.launches for kernel in kernels] == [n + 1 for n in before]
     got = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
         t.grad = None
@@ -170,6 +190,26 @@ def test_flash_wrappers_refuse_bad_input(card):
         fa.flash_dq(q, k, v, go, lse.double(), lse)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_dkv(q, k, v, go, lse[:, :32].contiguous(), lse)
+
+
+def test_flash_sm90_wrappers_refuse_what_tma_cannot_take(card):
+    """Outside bfloat16/float16 at d = 64 or 128, or on q/k/v that are not
+    16-byte aligned, the tensor-core wrappers raise; nothing falls back."""
+    q, k, v, go = checks.flash_inputs(2, 128, 64, torch.float32, card)
+    lse = torch.zeros(2, 128, device=card)
+    before = [kernel.launches for kernel in fa.KERNELS]
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
+        fa.flash_fwd_sm90(q, k, v)
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
+        fa.flash_dkv_sm90(q, k, v, go, lse, lse)
+    odd = checks.flash_inputs(2, 128, 96, torch.bfloat16, card)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_fwd_sm90(*odd[:3])
+    flat = torch.zeros(2 * 128 * 64 + 1, device=card, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 128, 64)  # contiguous, 2 bytes off alignment
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_fwd_sm90(shifted, shifted, shifted)
+    assert [kernel.launches for kernel in fa.KERNELS] == before
 
 
 # ---------------------------------------------------------------- ring

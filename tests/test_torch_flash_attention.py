@@ -6,7 +6,8 @@ Inputs come from numpy with a seed and go to both.  Tolerances are the JAX
 tests': 2e-5 for float32 values and lse, 2e-4 for gradients (float32 sums
 over S in another order, and the backward's extra products).  The
 tile-range helpers, which the CUDA kernels mirror, are checked against the
-brute-force mask.
+brute-force mask, and the route and tile order of the tensor-core kernels
+are checked here too.
 """
 
 import importlib
@@ -139,7 +140,9 @@ def _brute_force_visible(S, causal, window):
 
 
 @pytest.mark.parametrize("S,bq,bk", [(64, 16, 16), (96, 32, 32), (100, 16, 32),
-                                     (70, 32, 16), (128, 64, 64), (33, 8, 8)])
+                                     (70, 32, 16), (128, 64, 64), (33, 8, 8),
+                                     (384, 128, 128), (300, 128, 128), (129, 128, 128),
+                                     (1000, 64, 128), (129, 64, 128)])
 def test_tile_ranges_skip_only_masked_tiles(S, bq, bk):
     """For every tile pair: a pair outside the scanned range holds no
     visible (query, key) element, from both sides (the query tile's key
@@ -177,3 +180,35 @@ def test_tiles_and_peaks_cover_every_kernel_shape_and_dtype():
     assert [fa.tile_rows(d) for d in (8, 64, 128, 129, 256)] == [64, 64, 64, 32, 32]
     for dtype in fa._DTYPE_CODES:
         assert flops.peak_flops("NVIDIA H100 80GB HBM3", dtype) > 0
+
+
+@pytest.mark.parametrize("d", [8, 64, 100, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=lambda t: str(t)[6:])
+def test_route_takes_tensor_cores_for_16_bit_types_at_64_and_128(dtype, d):
+    """The tensor-core kernels take bfloat16 and float16 at head dims 64 and
+    128; float32 (whose products must stay float32) and every other head
+    dim stay on the SIMT kernels."""
+    sm90 = dtype in (torch.bfloat16, torch.float16) and d in (64, 128)
+    assert fa.flash_route(dtype, d) == ("sm90" if sm90 else "simt")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 7, 16])
+def test_sm90_tile_order_covers_every_tile_heaviest_first(n, causal):
+    """Each kernel's launch order is a permutation of its tiles; under a
+    causal mask the tiles that scan the most of the other side go first."""
+    S, t, tq = n * fa.SM90_TILE, fa.SM90_TILE, fa.SM90_DKV_QUERY_TILE
+    scans = {
+        "fwd": lambda i: np.subtract(*fa.key_tile_range(i, S, t, t, causal=causal,
+                                                        window=None)[::-1]),
+        "dkv": lambda j: np.subtract(*fa.query_tile_range(j, S, tq, t, causal=causal,
+                                                          window=None)[::-1]),
+    }
+    for kernel, scanned in scans.items():
+        order = fa.sm90_tile_order(n, causal=causal, kernel=kernel)
+        assert sorted(order) == list(range(n)), (kernel, order)
+        work = [scanned(i) for i in order]
+        assert work == sorted(work, reverse=True), (kernel, work)
+    with pytest.raises(ValueError, match="kernel"):
+        fa.sm90_tile_order(n, causal=causal, kernel="dq")

@@ -6,6 +6,7 @@ from tpu_dist_torch.ops.flash_attention import (
     flash_dkv,
     flash_dq,
     flash_fwd,
+    flash_route,
 )
 from tpu_dist_torch.ops.matmul import (
     fused_dense,
@@ -25,6 +26,7 @@ __all__ = [
     "flash_dkv",
     "flash_dq",
     "flash_fwd",
+    "flash_route",
     "fused_dense",
     "matmul",
     "matmul_reference",

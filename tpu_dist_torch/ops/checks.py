@@ -3,9 +3,12 @@
 One copy of each check, called by the card tests (`tests/test_torch_cuda.py`)
 and by ``chip_smoke.py``:
 
-- `check_flash_kernels`: the three flash kernels against their plain
-  versions on given inputs (any head dim up to 256, float32, bfloat16 or
-  float16), with the count of dK elements that differ at all;
+- `check_flash_kernels`: the flash kernels of the route `flash_route`
+  names (tensor-core forward and dK/dV for bfloat16 and float16 at d = 64
+  and 128, SIMT otherwise; dQ SIMT) against their plain versions on given
+  inputs (any head dim up to 256, float32, bfloat16 or float16), with the
+  launch counts that show which kernels ran and the count of dK elements
+  that differ at all;
 - `check_flash_past_2_31`: the flash kernels on (bh, S, d) arrays of more
   than 2^31 elements, held to the plain version on the heads that lie past
   2^31;
@@ -57,26 +60,40 @@ def _differing(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a != b).sum().item())
 
 
+def _launch_counts() -> dict:
+    return {kernel.__name__: kernel.launches for kernel in fa.KERNELS}
+
+
+def _require_route(before: dict, route: str) -> None:
+    """Since ``before``, the forward and dK/dV wrappers of ``route`` and dQ
+    each launched one kernel, and no other wrapper launched any."""
+    ran = {f"flash_fwd_{route}", f"flash_dkv_{route}", "flash_dq"}
+    want = {name: n + (name in ran) for name, n in before.items()}
+    got = _launch_counts()
+    _require(got == want, f"flash launches {got}, expected {want} (route {route})")
+
+
 def check_flash_kernels(q, k, v, go, *, causal: bool, window: int | None,
                         exact_dk: bool = False) -> dict:
     """Forward (out, lse), dK/dV and dQ against the plain versions, the
-    backward kernels fed the plain forward's lse and D = rowsum(dO * out).
-    Returns the plain lse and D (for timing) and, per kernel, the max
-    |difference|; ``dk_differing`` counts dK elements that differ at all,
+    backward kernels fed the plain forward's lse and D = rowsum(dO * out);
+    the route's forward and dK/dV wrappers and dQ each launched once, no
+    other wrapper.  Returns the route, the plain lse and D (for timing) and,
+    per kernel, the max |difference|; ``dk_differing`` counts dK elements that differ at all,
     and ``exact_dk`` requires it to be 0: in float32 the kernel sums dS^T Q
     in query order with one FMA accumulator and scales once after the sum,
     which equals the plain version bit for bit wherever its product is one
     in-order sum too (short S; cuBLAS splits long sums)."""
     kw = dict(causal=causal, window=window)
-    counts = [fa.flash_fwd.launches, fa.flash_dkv.launches, fa.flash_dq.launches]
+    route = fa.flash_route(q.dtype, q.shape[-1])
+    counts = _launch_counts()
     out, lse = fa.flash_fwd(q, k, v, **kw)
     want_out, want_lse = fa.flash_fwd_reference(q, k, v, **kw)
     delta = (go.float() * want_out.float()).sum(-1)
     dk, dv = fa.flash_dkv(q, k, v, go, want_lse, delta, **kw)
     dq = fa.flash_dq(q, k, v, go, want_lse, delta, **kw)
     torch.cuda.synchronize()
-    _require([fa.flash_fwd.launches, fa.flash_dkv.launches, fa.flash_dq.launches]
-             == [c + 1 for c in counts], "a flash wrapper did not count its launch")
+    _require_route(counts, route)
     want_dk, want_dv = fa.flash_dkv_reference(q, k, v, go, want_lse, delta, **kw)
     want_dq = fa.flash_dq_reference(q, k, v, go, want_lse, delta, **kw)
     tol = FLASH_TOL[q.dtype]
@@ -93,18 +110,22 @@ def check_flash_kernels(q, k, v, go, *, causal: bool, window: int | None,
     dk_differing = _differing(dk, want_dk)
     _require(not exact_dk or dk_differing == 0, f"{dk_differing} dK elements differ")
     return {"max_abs_err": errs, "tol": tol, "dk_differing": dk_differing,
-            "lse": want_lse, "delta": delta}
+            "lse": want_lse, "delta": delta, "route": route}
 
 
 def check_flash_past_2_31(device, *, S: int = 256, d: int = 128, heads_checked: int = 2) -> dict:
     """bfloat16 causal (bh, S, d) with bh * S * d just past 2^31: all three
-    kernels run on the whole array, and the last ``heads_checked`` heads,
-    which start past element 2^31, are held to the plain version."""
+    kernels of the route (at d = 128 the tensor-core forward and dK/dV,
+    whose TMA coordinates are (d, S, bh)) run on the whole array, and the
+    last ``heads_checked`` heads, which start past element 2^31, are held to
+    the plain version."""
     bh = 2**31 // (S * d) + heads_checked
     dtype = torch.bfloat16
+    route = fa.flash_route(dtype, d)
     g = torch.Generator(device).manual_seed(5)
     q, k, v, go = (torch.randn(bh, S, d, generator=g, device=device, dtype=dtype)
                    for _ in range(4))
+    counts = _launch_counts()
     out, lse = fa.flash_fwd(q, k, v, causal=True)
     tail = slice(bh - heads_checked, bh)
     want_out, want_lse = fa.flash_fwd_reference(q[tail], k[tail], v[tail], causal=True)
@@ -114,6 +135,7 @@ def check_flash_past_2_31(device, *, S: int = 256, d: int = 128, heads_checked: 
     dk, dv = fa.flash_dkv(q, k, v, go, lse, delta, causal=True)
     dq = fa.flash_dq(q, k, v, go, lse, delta, causal=True)
     torch.cuda.synchronize()
+    _require_route(counts, route)
     args = (q[tail], k[tail], v[tail], go[tail], lse[tail], delta[tail])
     want_dk, want_dv = fa.flash_dkv_reference(*args, causal=True)
     want_dq = fa.flash_dq_reference(*args, causal=True)
@@ -127,7 +149,8 @@ def check_flash_past_2_31(device, *, S: int = 256, d: int = 128, heads_checked: 
         errs[name] = (got.float() - want.float()).abs().max().item()
     first = (bh - heads_checked) * S * d
     _require(first >= 2**31, "the checked heads must start past element 2^31")
-    return {"q": [bh, S, d], "dtype": "bfloat16", "causal": True, "elements": bh * S * d,
+    return {"q": [bh, S, d], "dtype": "bfloat16", "causal": True, "route": route,
+            "elements": bh * S * d,
             "checked_heads_start_at": first, "max_abs_err": errs, "tol": tol}
 
 

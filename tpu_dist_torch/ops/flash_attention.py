@@ -1,22 +1,34 @@
-"""Blockwise (flash) attention: forward, dK/dV and dQ in three CUDA kernels.
+"""Blockwise (flash) attention: forward, dK/dV and dQ as CUDA kernels.
 
 The port of `tpu_dist.ops.flash_attention` (the Pallas kernels
-``_flash_kernel``, ``_dkv_kernel`` and ``_dq_kernel``).  The kernels are
-``csrc/flash_attention.cu``, built at first use by `_build.build` and called
-through ``ctypes``.  Beside them:
+``_flash_kernel``, ``_dkv_kernel`` and ``_dq_kernel``).  Two sources, each
+built at first use by `_build.build` and called through ``ctypes``:
+
+- ``csrc/flash_attention_sm90.cu``: the forward and dK/dV on Hopper's tensor
+  cores (``wgmma`` fed by TMA), for bfloat16 and float16 at head dims 64
+  and 128;
+- ``csrc/flash_attention.cu``: SIMT kernels for every dtype and head dim
+  up to 256, which take float32 (whose products must stay float32, not the
+  tensor cores' TF32), the other head dims, and dQ.
+
+`flash_route` picks one by dtype and head dim.  Beside the kernels:
 
 - `flash_fwd_reference`, `flash_dkv_reference`, `flash_dq_reference`: the
   plain PyTorch versions, the same formulas on dense (S, S) blocks.  Tensors
   on the CPU take them; on the card they are what the kernels are held
   against.
-- `flash_fwd`, `flash_dkv`, `flash_dq`: the kernels' wrappers, for CUDA
-  tensors only, each with its launch count (``flash_fwd.launches``, ...).
+- `flash_fwd_sm90`, `flash_fwd_simt`, `flash_dkv_sm90`, `flash_dkv_simt`,
+  `flash_dq`: the kernels' wrappers, for CUDA tensors only, each with its
+  launch count (``flash_fwd_sm90.launches``, ...); `flash_fwd` and
+  `flash_dkv` hand a call to the wrapper `flash_route` names.  A failed
+  build or launch raises: nothing falls back to another kernel.
 - `flash_attention` and `flash_attention_lse` on the JAX layout
   ``(..., heads, S, d)``, with the JAX package's checks; the first is
   differentiable, its backward the two backward kernels, as the JAX custom
   VJP runs them.
-- `key_tile_range` and `query_tile_range`: the tile-skipping arithmetic the
-  kernels use (and the TPU kernels used), in Python for the tests.
+- `key_tile_range`, `query_tile_range` and `sm90_tile_order`: the
+  tile-skipping arithmetic the kernels use (and the TPU kernels used), and
+  the order the sm90 blocks take their tiles, in Python for the tests.
 """
 
 from __future__ import annotations
@@ -29,10 +41,16 @@ import torch
 from tpu_dist_torch.ops import _build
 
 NEG_INF = -1e30
-TILE = 64  # the kernels' query and key tile up to d = 128 (the TPU kernels' bq, bk: 256)
+TILE = 64  # the SIMT kernels' query and key tile up to d = 128 (the TPU kernels' bq, bk: 256)
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_GRID_Y = 65535  # the kernels' grid is (bh, S / tile)
+# The tensor-core kernels: their dtypes and head dims, their forward query
+# and key tile and dK/dV key tile, and their dK/dV query tile.
+SM90_DTYPES = (torch.bfloat16, torch.float16)
+SM90_HEAD_DIMS = (64, 128)
+SM90_TILE = 128
+SM90_DKV_QUERY_TILE = 64
 # Plain versions form (chunk, S, S) float32 blocks; this many elements each.
 _REFERENCE_BLOCK = 1 << 27
 
@@ -41,8 +59,8 @@ _REFERENCE_BLOCK = 1 << 27
 
 
 def tile_rows(d: int) -> int:
-    """The kernels' query and key tile for head dim ``d``: 64 rows, and 32
-    at d > 128, where four 64-row float32 tiles would not fit in a block's
+    """The SIMT kernels' query and key tile for head dim ``d``: 64 rows, and
+    32 at d > 128, where four 64-row float32 tiles would not fit in a block's
     shared memory."""
     return TILE if d <= 128 else TILE // 2
 
@@ -68,6 +86,25 @@ def query_tile_range(
     lo = (j * bk) // bq if causal else 0
     hi = min(n, ((j + 1) * bk - 1 + window - 1) // bq + 1) if window is not None else n
     return lo, hi
+
+
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """``"sm90"``: the tensor-core kernels take bfloat16 and float16 at head
+    dims 64 and 128.  ``"simt"`` for everything else: float32 keeps float32
+    products, and other head dims keep their own tiles.  dQ is SIMT on
+    every route."""
+    return "sm90" if dtype in SM90_DTYPES and d in SM90_HEAD_DIMS else "simt"
+
+
+def sm90_tile_order(n: int, *, causal: bool, kernel: str) -> list[int]:
+    """The tile each sm90 block takes, in launch order (``blockIdx.y`` = 0,
+    1, ...; every batch-head at one ``blockIdx.y`` launches together).
+    ``kernel="fwd"``: query tiles, and under a causal mask the last ones,
+    which scan the most key tiles, first.  ``kernel="dkv"``: key tiles in
+    order; under a causal mask the first scan the most query tiles."""
+    if kernel not in ("fwd", "dkv"):
+        raise ValueError(f"kernel is 'fwd' or 'dkv', got {kernel!r}")
+    return list(range(n - 1, -1, -1)) if causal and kernel == "fwd" else list(range(n))
 
 
 # ------------------------------------------------------------ plain versions
@@ -165,24 +202,33 @@ def flash_dq_reference(q3, k3, v3, go, lse, delta, *, causal=False, window=None)
 # ------------------------------------------------------------------- kernels
 
 
+_SIGNATURES = {  # pointer count of each entry point, before the shared tail
+    "flash_attention": {"flash_fwd": 5, "flash_dkv": 8, "flash_dq": 7},
+    "flash_attention_sm90": {"flash_fwd_sm90": 5, "flash_dkv_sm90": 8},
+}
+_ERROR_STRINGS = {"flash_attention": "flash_error_string",
+                  "flash_attention_sm90": "flash_sm90_error_string"}
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_build.build("flash_attention").path))
+def _library(source: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_build.build(source).path))
     p, i = ctypes.c_void_p, ctypes.c_int
     tail = [i, i, i, ctypes.c_float, i, i, i, p]  # bh S d scale dtype causal window stream
-    lib.flash_fwd.argtypes = [p] * 5 + tail
-    lib.flash_dkv.argtypes = [p] * 8 + tail
-    lib.flash_dq.argtypes = [p] * 7 + tail
-    for fn in (lib.flash_fwd, lib.flash_dkv, lib.flash_dq):
+    for name, pointers in _SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * pointers + tail
         fn.restype = ctypes.c_int
-    lib.flash_error_string.argtypes = [i]
-    lib.flash_error_string.restype = ctypes.c_char_p
+    errors = getattr(lib, _ERROR_STRINGS[source])
+    errors.argtypes = [i]
+    errors.restype = ctypes.c_char_p
     return lib
 
 
-def _check_operands(name, blocks, rows):
+def _check_operands(name, blocks, rows, tile):
     """``blocks``: (bh, S, d) tensors of one float dtype; ``rows``: (bh, S)
-    float32 tensors.  All contiguous CUDA tensors on one device."""
+    float32 tensors.  All contiguous CUDA tensors on one device.  ``tile``:
+    the kernel's rows per block along S (its grid is (bh, S / tile))."""
     first = blocks[0]
     if not all(t.is_cuda and t.device == first.device for t in blocks + rows):
         raise ValueError(f"{name} takes CUDA tensors on one device")
@@ -201,66 +247,121 @@ def _check_operands(name, blocks, rows):
         raise ValueError(f"{name} takes contiguous tensors")
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"{name} takes head dims 1..{MAX_HEAD_DIM}, got {d}")
-    if bh > 2**31 - 1 or -(-S // tile_rows(d)) > _MAX_GRID_Y:
+    if bh > 2**31 - 1 or -(-S // tile) > _MAX_GRID_Y:
         raise ValueError(f"{name} shape {(bh, S, d)} exceeds the kernel's grid "
-                         f"(bh < 2^31, S <= {_MAX_GRID_Y * tile_rows(d)})")
+                         f"(bh < 2^31, S <= {_MAX_GRID_Y * tile})")
     return bh, S, d
 
 
-def _launch(name, fn, pointers, shape, dtype, causal, window, device):
+def _check_sm90(name, blocks, rows):
+    """`_check_operands`, then what TMA needs: the sm90 domain and 16-byte
+    aligned q/k/v."""
+    shape = _check_operands(name, blocks, rows, SM90_TILE)
+    dtype, d = blocks[0].dtype, shape[2]
+    if flash_route(dtype, d) != "sm90":
+        raise ValueError(f"{name} takes bfloat16 or float16 at head dims {SM90_HEAD_DIMS}, "
+                         f"got {dtype} at d = {d}")
+    if any(t.data_ptr() % 16 for t in blocks):
+        raise ValueError(f"{name} needs 16-byte aligned q/k/v (TMA)")
+    return shape
+
+
+def _launch(source, fn, pointers, shape, dtype, causal, window, device):
     bh, S, d = shape
-    lib = _library()
+    lib = _library(source)
     with torch.cuda.device(device):
         code = getattr(lib, fn)(
             *pointers, bh, S, d, d**-0.5, _DTYPE_CODES[dtype], int(causal),
             0 if window is None else window, torch.cuda.current_stream().cuda_stream,
         )
     if code != 0:
-        reason = lib.flash_error_string(code).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({reason})")
+        reason = getattr(lib, _ERROR_STRINGS[source])(code).decode()
+        raise RuntimeError(f"{fn} launch failed: error {code} ({reason})")
 
 
-def flash_fwd(q3, k3, v3, *, causal=False, window=None):
-    """Launch the forward kernel on the current stream; returns ``out``
+def flash_fwd_simt(q3, k3, v3, *, causal=False, window=None):
+    """Launch the SIMT forward kernel on the current stream; returns ``out``
     (bh, S, d) in q's dtype and ``lse`` (bh, S) float32.  Raises on anything
-    it does not take.  Counts each launch in ``flash_fwd.launches``."""
-    shape = _check_operands("flash_fwd", [q3, k3, v3], [])
+    it does not take.  Counts each launch in ``flash_fwd_simt.launches``."""
+    shape = _check_operands("flash_fwd_simt", [q3, k3, v3], [], tile_rows(q3.shape[-1]))
     out = torch.empty_like(q3)
     lse = torch.empty(shape[:2], dtype=torch.float32, device=q3.device)
-    _launch("flash_fwd", "flash_fwd",
+    _launch("flash_attention", "flash_fwd",
             [t.data_ptr() for t in (q3, k3, v3, out, lse)],
             shape, q3.dtype, causal, window, q3.device)
-    flash_fwd.launches += 1
+    flash_fwd_simt.launches += 1
     return out, lse
 
 
-def flash_dkv(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
-    """Launch the dK/dV kernel; returns ``(dk, dv)`` in k's dtype.  Counts
-    each launch in ``flash_dkv.launches``."""
-    shape = _check_operands("flash_dkv", [q3, k3, v3, go], [lse, delta])
+def flash_fwd_sm90(q3, k3, v3, *, causal=False, window=None):
+    """Launch the tensor-core forward kernel; the contract of
+    `flash_fwd_simt` on bfloat16 and float16 at head dims 64 and 128.
+    Counts each launch in ``flash_fwd_sm90.launches``."""
+    shape = _check_sm90("flash_fwd_sm90", [q3, k3, v3], [])
+    out = torch.empty_like(q3)
+    lse = torch.empty(shape[:2], dtype=torch.float32, device=q3.device)
+    _launch("flash_attention_sm90", "flash_fwd_sm90",
+            [t.data_ptr() for t in (q3, k3, v3, out, lse)],
+            shape, q3.dtype, causal, window, q3.device)
+    flash_fwd_sm90.launches += 1
+    return out, lse
+
+
+def flash_dkv_simt(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
+    """Launch the SIMT dK/dV kernel; returns ``(dk, dv)`` in k's dtype.
+    Counts each launch in ``flash_dkv_simt.launches``."""
+    shape = _check_operands("flash_dkv_simt", [q3, k3, v3, go], [lse, delta],
+                            tile_rows(q3.shape[-1]))
     dk, dv = torch.empty_like(k3), torch.empty_like(v3)
-    _launch("flash_dkv", "flash_dkv",
+    _launch("flash_attention", "flash_dkv",
             [t.data_ptr() for t in (q3, k3, v3, go, lse, delta, dk, dv)],
             shape, q3.dtype, causal, window, q3.device)
-    flash_dkv.launches += 1
+    flash_dkv_simt.launches += 1
+    return dk, dv
+
+
+def flash_dkv_sm90(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
+    """Launch the tensor-core dK/dV kernel; the contract of
+    `flash_dkv_simt` on its domain.  Counts each launch in
+    ``flash_dkv_sm90.launches``."""
+    shape = _check_sm90("flash_dkv_sm90", [q3, k3, v3, go], [lse, delta])
+    dk, dv = torch.empty_like(k3), torch.empty_like(v3)
+    _launch("flash_attention_sm90", "flash_dkv_sm90",
+            [t.data_ptr() for t in (q3, k3, v3, go, lse, delta, dk, dv)],
+            shape, q3.dtype, causal, window, q3.device)
+    flash_dkv_sm90.launches += 1
     return dk, dv
 
 
 def flash_dq(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
-    """Launch the dQ kernel; returns ``dq`` in q's dtype.  Counts each
-    launch in ``flash_dq.launches``."""
-    shape = _check_operands("flash_dq", [q3, k3, v3, go], [lse, delta])
+    """Launch the (SIMT) dQ kernel; returns ``dq`` in q's dtype.  Counts
+    each launch in ``flash_dq.launches``."""
+    shape = _check_operands("flash_dq", [q3, k3, v3, go], [lse, delta], tile_rows(q3.shape[-1]))
     dq = torch.empty_like(q3)
-    _launch("flash_dq", "flash_dq",
+    _launch("flash_attention", "flash_dq",
             [t.data_ptr() for t in (q3, k3, v3, go, lse, delta, dq)],
             shape, q3.dtype, causal, window, q3.device)
     flash_dq.launches += 1
     return dq
 
 
-flash_fwd.launches = 0
-flash_dkv.launches = 0
-flash_dq.launches = 0
+for _kernel in (flash_fwd_simt, flash_fwd_sm90, flash_dkv_simt, flash_dkv_sm90, flash_dq):
+    _kernel.launches = 0
+# every wrapper that launches a kernel, each with its own count
+KERNELS = (flash_fwd_sm90, flash_fwd_simt, flash_dkv_sm90, flash_dkv_simt, flash_dq)
+
+
+def flash_fwd(q3, k3, v3, *, causal=False, window=None):
+    """The forward kernel `flash_route` names for q's dtype and head dim."""
+    sm90 = flash_route(q3.dtype, q3.shape[-1]) == "sm90"
+    return (flash_fwd_sm90 if sm90 else flash_fwd_simt)(q3, k3, v3, causal=causal, window=window)
+
+
+def flash_dkv(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
+    """The dK/dV kernel `flash_route` names for q's dtype and head dim."""
+    sm90 = flash_route(q3.dtype, q3.shape[-1]) == "sm90"
+    return (flash_dkv_sm90 if sm90 else flash_dkv_simt)(q3, k3, v3, go, lse, delta,
+                                                        causal=causal, window=window)
 
 
 def _on(t: torch.Tensor, kernel, reference):
@@ -328,8 +429,8 @@ def flash_attention(
     """Attention over ``(..., heads, S, d)`` without materializing (S, S).
 
     ``bq``/``bk`` are the JAX kernel's blocks: S must divide by them after
-    they clamp to S, as there; the CUDA kernels use their own 64- or 32-row tiles
-    and take any S.  ``window=w`` adds the band ``k > q - w``.
+    they clamp to S, as there; the CUDA kernels use their own tiles (128
+    rows on the tensor-core route, 64 or 32 on the SIMT one) and take any S.  ``window=w`` adds the band ``k > q - w``.
     Differentiable: the backward runs the dK/dV and dQ kernels."""
     _validate(q, k, v, bq, bk, window, window_first=False)
     out = _Flash.apply(_flat(q), _flat(k), _flat(v), causal, window)
