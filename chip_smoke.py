@@ -45,11 +45,13 @@ the exit code is nonzero:
           carries the handle exchange; the kernel moves the data): each
           rank's output bit for bit against the plain version in float32,
           bfloat16, float16 and int32, ragged sizes, 100 calls back to back,
-          a workspace grown and reused; launch counts; one 64 MiB float32
-          call at world 4, held to the plain version too, timed per call
-          and traced for the kernel's own time beside the plain version and
-          its bound; then
-          a neighbour that cannot start makes both ranks' calls raise.
+          a workspace grown and reused, every rank's output the same bits
+          as rank 0's; launch counts; one 64 MiB float32 call at world 4,
+          held to the plain version too, timed per call and traced for the
+          kernel's own time and phases beside the plain version and its
+          bound, with no control-group collective per call; then a
+          neighbour that cannot start, and ranks that pass another numel or
+          dtype or disagree about growing, make both ranks' calls raise.
 
 Then one JSON line per kernel, the card's name and power limit, and the
 result line.  Without a CUDA device it exits nonzero before printing any
@@ -597,23 +599,28 @@ def lm_path(device, fa, card_name) -> dict:
 
 RING_WORLDS = (2, 3, 4)
 RING_TIMED = (4, 64.0)  # world, MiB of float32 per rank
+RING_SCHEDULE = ("reduce-scatter then all-gather of ceil(numel / n)-element chunks in one "
+                 "launch (the chunked ring)")
 
 
 def ring_path(checks, flops, metrics, card_name) -> dict:
     """The ring kernel under `comm.spmd` at each world on this one card
     (`ops.checks.check_ring`, which raises on any element that differs from
-    the plain version, a miscounted launch or a wrong workspace growth),
-    the world-4 run timed, then the stuck-neighbour check."""
+    the plain version, a rank whose output differs from rank 0's, a
+    miscounted launch, a wrong workspace growth or a control-group
+    collective on a timed call), the world-4 run timed, then the
+    stuck-neighbour and mismatch checks."""
     runs = {}
     for world in RING_WORLDS:
         timed = world == RING_TIMED[0]
-        res = checks.check_ring(world, time_mbytes=RING_TIMED[1] if timed else 0.0)
+        res = checks.check_ring(world, time_mib=RING_TIMED[1] if timed else 0.0)
         runs[world] = res
         differing = {label: counts.tolist() for label, counts in res["differing"].items()}
         print(f"[ring] world {world}, {world} processes on one card: elements that differ "
-              f"from the plain version, per rank: {json.dumps(differing)}; kernel launches "
-              f"per rank {res['launches'].tolist()}; workspace grew {res['grows'].tolist()} "
-              f"times to {res['capacity'].tolist()} bytes", flush=True)
+              f"from the plain version, per rank: {json.dumps(differing)}; every rank's "
+              f"output the same bits as rank 0's in all {len(res['digests'])} cases; kernel "
+              f"launches per rank {res['launches'].tolist()}; workspace grew "
+              f"{res['grows'].tolist()} times to {res['capacity'].tolist()} bytes", flush=True)
     world, mib = RING_TIMED
     res = runs[world]
     payload = int(mib * 2**20)
@@ -622,15 +629,18 @@ def ring_path(checks, flops, metrics, card_name) -> dict:
     bound_ms = 2 * world * payload / flops.peak_bytes_per_s(PEAK_CARD) * 1e3
     timing = {
         "world": world, "bytes_per_rank": payload, "dtype": "float32",
+        "schedule": RING_SCHEDULE,
         "timing": "ms: the kernel's own device time per launch from torch.profiler over 20 "
                   "calls, the slowest rank; call_ms: CUDA events around 20 calls on each rank "
                   "after a barrier (the wrapper's host work included), the slowest rank; "
                   "gap_ms: the card idle between one launch and the next on the stream; "
-                  "check_ms: the host's time per call of the wrapper's shape check alone",
+                  "control_per_call: control-group collectives per timed call; phase_ms: "
+                  "per launch, the mean over blocks of the kernel's waits and moves",
         "ms_per_rank": res["kernel_ms"].tolist(), "ms": ms,
         "call_ms_per_rank": res["call_ms"].tolist(), "call_ms": float(res["call_ms"].max()),
         "gap_ms_per_rank": res["gap_ms"].tolist(), "host_ms_per_rank": res["host_ms"].tolist(),
-        "check_ms_per_rank": res["check_ms"].tolist(),
+        "control_per_call_per_rank": res["control_per_call"].tolist(),
+        "phase_ms_rank0": {k: float(v[0]) for k, v in res["phase_ms"].items()},
         "bus_gbps": metrics.allreduce_gbps(payload, float(res["call_ms"].max()) / 1e3, world),
         "differing": res["timed_differing"].tolist(),
         "max_abs_err": float(res["timed_max_abs_err"].max()),
@@ -646,6 +656,9 @@ def ring_path(checks, flops, metrics, card_name) -> dict:
     stuck = checks.check_ring_stuck_neighbour()
     print(f"[ring] stuck neighbour: both ranks raised after {stuck['seconds']} s "
           f"(bound 2 s per wait): {stuck['message']}", flush=True)
+    for kind, seen in checks.check_ring_mismatch().items():
+        print(f"[ring] ranks that disagree ({kind}): both raised after {seen['seconds']} s "
+              f"(bound 2 s per wait): {seen['messages'][0]}", flush=True)
     return {"launches": int(res["launches"][0]), "timing": timing}
 
 
@@ -743,6 +756,7 @@ def main() -> None:
         "replaces": "tpu_dist/ops/pallas_ring.py:36", "launches": ring["launches"],
         **{key: timing[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
+        "schedule": RING_SCHEDULE,
         "work": f"one call of {timing['bytes_per_rank']} bytes of float32 per rank at world "
                 f"{timing['world']}, every rank a process on this one card; max_abs_err: that "
                 "call's output against the plain version, the worst rank; ms: the kernel's "

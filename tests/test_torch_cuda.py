@@ -215,16 +215,23 @@ def test_flash_sm90_wrappers_refuse_what_tma_cannot_take(card):
 # ---------------------------------------------------------------- ring
 
 
-@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("world", [2, 3, 4])
 def test_ring_kernel_matches_plain_version(card, world):
     """`world` processes on the card: every output bit for bit equal to the
     plain version (float32, bfloat16, float16, int32, ragged, 100 calls back
-    to back, a workspace grown and reused), one launch per call."""
+    to back, a workspace grown and reused) and to rank 0's, one launch per
+    call."""
     checks.check_ring(world)
 
 
 def test_ring_stuck_neighbour_raises_within_the_bound(card):
     checks.check_ring_stuck_neighbour()
+
+
+def test_ring_ranks_that_disagree_raise_within_the_bound(card):
+    """Another numel, another dtype, or a growth only one rank needs: both
+    ranks raise, and nothing hangs."""
+    checks.check_ring_mismatch()
 
 
 def test_ring_wrapper_refuses_what_the_kernel_cannot_take(card):

@@ -8,10 +8,13 @@ few seconds).  The JAX side of the same cases is in test_torch_ring.py.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from tpu_dist_torch import comm, ops, parallel
+from tpu_dist_torch.ops import pallas_ring
 
 SEED = 7
 
@@ -48,6 +51,10 @@ def cases(n: int) -> dict[str, tuple[str, np.ndarray, str]]:
         "all_gather_offset1_i32": ("ring_all_gather_offset1", i32(2), "int32"),
         "pallas_cpu_f32": ("ring_all_reduce_pallas", f32(8, 128), "float32"),
         "pallas_cpu_i32": ("ring_all_reduce_pallas", i32(33), "int32"),
+        "pallas_cpu_bf16": ("ring_all_reduce_pallas", f32(3, 41), "bfloat16"),
+        "pallas_cpu_f32_7": ("ring_all_reduce_pallas", f32(7), "float32"),
+        "pallas_cpu_f32_fewer_than_ranks": ("ring_all_reduce_pallas", f32(n - 1), "float32"),
+        "pallas_cpu_i32_ragged": ("ring_all_reduce_pallas", i32(1001), "int32"),
         "shift1_f32": ("shift1", f32(4), "float32"),
         "shift2_f32": ("shift2", f32(4), "float32"),
         "send_f32": ("send", f32(6), "float32"),
@@ -87,6 +94,82 @@ def run_all() -> dict[str, torch.Tensor]:
         y = _apply(fn, x, n)
         results[name] = y.float() if y.dtype == torch.bfloat16 else y
     return results
+
+
+def pallas_cases(n: int) -> list[str]:
+    return [name for name, (fn, _, _) in cases(n).items() if fn == "ring_all_reduce_pallas"]
+
+
+# ------------------------------------------------- the workspace's growth
+
+
+class HostWorkspace(pallas_ring.Workspace):
+    """The ring workspace's host logic over real control groups, with
+    stand-in memory: its stamp exchange, handle exchange and teardown
+    barrier go over the groups `_CudaWorkspace` joins, and ``late`` delays
+    this rank before the handle exchange and the barrier."""
+
+    def __init__(self, late: float = 0.0):
+        super().__init__(comm.world_size(), comm.rank())
+        self.join()
+        self.late = late
+
+    def _create(self, capacity):
+        time.sleep(self.late)
+        handles = [None] * self.world
+        torch.distributed.all_gather_object(handles, self.rank, group=self.control)
+        return (1, 2, 3)
+
+    def _barrier(self):
+        time.sleep(self.late)
+        torch.distributed.barrier(group=self.control)
+
+    def _release(self):
+        pass
+
+
+def growth_disagreements(timeout: float) -> dict:
+    """Two growth exchanges over a control group whose waits end after
+    ``timeout``: the ranks grow for different stamps (every rank raises),
+    then only rank 0 grows (it raises after the bound, and rank 1, which
+    made no exchange, is not held)."""
+    pallas_ring.CONTROL_TIMEOUT_S = timeout
+    r = comm.rank()
+    out = {}
+    ws = HostWorkspace()
+    try:
+        ws.reserve(64, (16 + r, 0, 0, 0))
+        out["different"] = ""
+    except ValueError as e:
+        out["different"] = str(e)
+    out["different_broken"] = ws.broken is not None
+    ws = HostWorkspace()
+    t0 = time.perf_counter()
+    out["alone"] = ""
+    if r == 0:
+        try:
+            ws.reserve(64, (16, 0, 0, 0))
+        except RuntimeError as e:
+            out["alone"] = str(e)
+    out["alone_seconds"] = time.perf_counter() - t0
+    out["alone_broken"] = ws.broken is not None
+    comm.barrier()
+    return out
+
+
+def late_rank_after_the_stamps(timeout: float, late: float) -> dict:
+    """A growth both ranks agree on, then teardown, with rank 1 ``late``
+    seconds behind rank 0 after the stamp exchange, whose waits end after
+    ``timeout``: only the stamp exchange is bounded, so neither rank
+    raises; rank 0's wait in the handle exchange and the barrier is
+    reported."""
+    pallas_ring.CONTROL_TIMEOUT_S = timeout
+    ws = HostWorkspace(late=late if comm.rank() == 1 else 0.0)
+    t0 = time.perf_counter()
+    grew = ws.reserve(64, (16, 0, 0, 0))
+    ws.free()
+    return {"grew": grew, "freed": ws.pointers is None, "broken": ws.broken is not None,
+            "waited": time.perf_counter() - t0}
 
 
 # ------------------------------------------------- comm.spmd's own tests

@@ -108,8 +108,11 @@ def on_teardown(fn: Callable[[], None]) -> None:
 
 def destroy_process_group() -> None:
     """The port's teardown: every registered hook, then
-    ``dist.destroy_process_group``."""
-    while _TEARDOWN:
-        _TEARDOWN.pop()()
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    ``dist.destroy_process_group``, which runs also when a hook raises (the
+    hook's error is raised after it)."""
+    try:
+        while _TEARDOWN:
+            _TEARDOWN.pop()()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

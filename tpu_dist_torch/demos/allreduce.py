@@ -1,7 +1,7 @@
 """All-reduce demo and bandwidth benchmark.
 
     python -m tpu_dist_torch.demos.allreduce [--world 4] [--device cuda|cpu]
-                                             [--bench [ITERS]] [--mbytes 16]
+                                             [--bench [ITERS]] [--mib 16]
 
 The port of ``demos/allreduce.py``: four rounds of ``t = all_reduce(t)``
 from ones multiply by the world size each round, so every rank ends with
@@ -9,12 +9,14 @@ from ones multiply by the world size each round, so every rank ends with
 (`parallel.ring_all_reduce_chunked`) and through the ring kernel
 (`ops.ring_all_reduce_pallas`) must agree elementwise.  ``--bench`` times
 ``all_reduce``, the naive ring (`parallel.ring_all_reduce`) and the ring
-kernel on a float32 payload of ``--mbytes`` MB and reports bus GB/s
+kernel on a float32 payload of ``--mib`` MiB (2^20 bytes, as
+``chip_smoke.py``'s ``[ring]``) and reports bus GB/s
 (`train.metrics.allreduce_gbps`) from the slowest rank's time; on the card
 it also traces the ring kernel (`ops.checks.trace_ring_calls`): its own
 device time per launch, the card's idle time between launches, the host's
-time per call, and the host's time per call of the wrapper's shape check
-alone.
+time per call, the control-group collectives per call, and where each
+block's time goes (waiting for arrivals, waiting for a free slot, moving
+data).
 
 Every rank is a process started by `comm.spmd`.  With a card per rank the
 group is NCCL; ranks that share a card run over the Gloo control group, so
@@ -81,26 +83,31 @@ def run_bench(device_type: str, n: int, iters: int):
     return seconds
 
 
-def bench(world: int, device: str, mbytes: float, iters: int) -> dict:
+def bench(world: int, device: str, mib: float, iters: int) -> dict:
     """Bus GB/s of each path, from the slowest rank's seconds per call."""
-    n = int(mbytes * 1e6 / 4)
+    n = int(mib * 2**20 / 4)
     seconds = comm.spmd(run_bench, device, n, iters, world=world, device=device)
     results = {}
     for name in BENCH_PATHS:
         dt = float(seconds[name].max())
         results[name] = allreduce_gbps(n * 4, dt, world)
-        print(f"{name}: {n * 4 / 1e6:.1f} MB all-reduce over {world} ranks: "
-              f"{dt * 1e3:.3f} ms -> {results[name]:.3f} GB/s bus bandwidth on {device}")
+        print(f"{name}: {n * 4 / 2**20:.1f} MiB all-reduce over {world} ranks: "
+              f"{dt * 1e3:.4f} ms -> {results[name]:.3f} GB/s bus bandwidth on {device}")
     if "kernel_ms" in seconds:
-        traced = {key: float(seconds[key].max()) for key in ("kernel_ms", "gap_ms", "host_ms",
-                                                           "check_ms")}
+        traced = {key: float(seconds[key].max())
+                  for key in ("kernel_ms", "gap_ms", "host_ms", "control_per_call")}
         traced["kernel_gbps"] = allreduce_gbps(n * 4, traced["kernel_ms"] / 1e3, world)
-        print(f"ring_kernel traced over {iters} calls, slowest rank: {traced['kernel_ms']:.4f} "
-              f"ms per launch on the card ({traced['kernel_gbps']:.3f} GB/s bus bandwidth "
-              f"for the kernel alone), the card idle {traced['gap_ms']:.4f} ms between "
-              f"launches, the host {traced['host_ms']:.4f} ms per call (both slowed by the "
-              f"profiler); the wrapper's shape check alone {traced['check_ms']:.4f} ms per "
-              "call on the host, without the profiler")
+        traced["phase_ms"] = {key: float(v.max()) for key, v in seconds["phase_ms"].items()}
+        print(f"ring_kernel traced over {iters} calls, slowest rank: "
+              f"{traced['kernel_ms']:.4f} ms per launch on the card "
+              f"({traced['kernel_gbps']:.3f} GB/s bus bandwidth for the kernel alone), the "
+              f"card idle {traced['gap_ms']:.4f} ms between launches, the host "
+              f"{traced['host_ms']:.4f} ms per call (both slowed by the profiler), "
+              f"{traced['control_per_call']:g} control-group collectives per call; per "
+              f"launch, a block's thread 0 (mean over blocks, slowest rank) waited "
+              f"{traced['phase_ms']['wait_arrival']:.4f} ms for arrivals and "
+              f"{traced['phase_ms']['wait_free']:.4f} ms for free slots, and moved data for "
+              f"{traced['phase_ms']['move']:.4f} ms")
         results["ring_kernel_traced"] = traced
     return results
 
@@ -111,7 +118,8 @@ def main(argv: list[str] | None = None):
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     parser.add_argument("--bench", type=int, nargs="?", const=20, default=0,
                         help="run the bandwidth benchmark with this many calls per path")
-    parser.add_argument("--mbytes", type=float, default=16.0, help="payload in MB for --bench")
+    parser.add_argument("--mib", type=float, default=16.0,
+                        help="payload in MiB (2^20 bytes) for --bench")
     parser.add_argument("--compress", default="",
                         help="compressed all-reduce wire (not ported yet)")
     args = parser.parse_args(argv)
@@ -131,7 +139,7 @@ def main(argv: list[str] | None = None):
             print("allreduce --bench needs world >= 2: with one rank there is no "
                   "traffic between ranks to measure — skipping")
             return {}
-        return bench(w, args.device, args.mbytes, args.bench)
+        return bench(w, args.device, args.mib, args.bench)
     return {}
 
 

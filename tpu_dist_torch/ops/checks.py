@@ -15,11 +15,15 @@ and by ``chip_smoke.py``:
 - `check_ring`: the ring kernel under `comm.spmd` at a world of ranks on
   the card, bit for bit against `ring_all_reduce_reference` in float32,
   bfloat16, float16 and int32, ragged sizes, 100 calls back to back and a
-  workspace that grows and is reused; optionally one timed and traced
-  call size, whose output is held to the plain version too
-  (`trace_ring_calls` gives the kernel's own device time);
+  workspace that grows and is reused, every rank's output the same bits;
+  optionally one timed and traced call size, whose output is held to the
+  plain version too (`trace_ring_calls` gives the kernel's own device time,
+  its phases and the control-group collectives per call);
 - `check_ring_stuck_neighbour`: a neighbour whose kernel cannot start makes
-  the call raise within the kernel's bound, on both ranks.
+  the call raise within the kernel's bound, on both ranks;
+- `check_ring_mismatch`: ranks that pass another numel or dtype, or that
+  disagree about growing the workspace, raise on both ranks within the
+  bound.
 
 Each raises AssertionError when a check fails (also under ``python -O``)
 and returns what it measured.  Nothing here runs without a card.
@@ -27,6 +31,7 @@ and returns what it measured.  Nothing here runs without a card.
 
 from __future__ import annotations
 
+import hashlib
 import importlib
 import time
 
@@ -188,33 +193,42 @@ def _bits_differing(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.view(view) != b.view(view)).sum().item())
 
 
-def _ring_rank(seed: int, time_mbytes: float, iters: int) -> dict:
-    """One rank of `check_ring`.  Returns the elements that differ from the
-    plain version per case, the workspace's growth and the launch count of
-    the checks; with ``time_mbytes``, one float32 call of that size per
-    rank: the time per call on the stream (``call_ms``, CUDA events around
-    ``iters`` calls, the wrapper's host work included), the last call's
-    output against the plain version (elements that differ, max |diff|),
-    the kernel's own time from a trace (`trace_ring_calls`) and, on rank 0, the
-    plain version's time."""
+def _digest(t: torch.Tensor) -> str:
+    """A digest of ``t``'s bits, to compare ranks' outputs."""
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def _ring_rank(seed: int, time_mib: float, iters: int) -> dict:
+    """One rank of `check_ring`.  Returns, per case, the elements that
+    differ from the plain version and a digest of the output's bits, the
+    workspace's growth and the launch count of the checks; with
+    ``time_mib``, one float32 call of that size per rank: the time per
+    call on the stream (``call_ms``, CUDA events around ``iters`` calls,
+    the wrapper's host work included), the last call's output against the
+    plain version (elements that differ, max |diff|, digest), the kernel's
+    own time from a trace (`trace_ring_calls`) and, on rank 0, the plain
+    version's time."""
     device = torch.device("cuda", torch.cuda.current_device())
     n, r = comm.world_size(), comm.rank()
     kernel, reference = pallas_ring.ring_all_reduce_pallas, pallas_ring.ring_all_reduce_reference
     kernel.launches = 0
-    differing = {}
+    differing, digests = {}, {}
     for label, shape, dtype in RING_CASES:
         xs = torch.stack([ring_payload(shape, dtype, q, seed, device) for q in range(n)])
         out = kernel(xs[r])
         pallas_ring.synchronize()
         differing[label] = _bits_differing(out, reference(xs)[r])
+        digests[label] = _digest(out)
 
     # back to back: no host sync until the last call
     xs = torch.stack([ring_payload(RING_BACK_TO_BACK_ELEMENTS, torch.float32, q, seed, device)
                       for q in range(n)])
     outs = [kernel(xs[r] * (i + 1)) for i in range(RING_BACK_TO_BACK)]
     pallas_ring.synchronize()
-    differing[f"{RING_BACK_TO_BACK} back to back"] = sum(
+    label = f"{RING_BACK_TO_BACK} back to back"
+    differing[label] = sum(
         _bits_differing(o, reference(xs * (i + 1))[r]) for i, o in enumerate(outs))
+    digests[label] = _digest(torch.stack(outs))
 
     ws = pallas_ring.workspace(device)
     grows_before, largest = ws.grows, ws.capacity
@@ -225,14 +239,15 @@ def _ring_rank(seed: int, time_mbytes: float, iters: int) -> dict:
         out = kernel(xs[r])
         pallas_ring.synchronize()
         differing[f"size {numel}"] = _bits_differing(out, reference(xs)[r])
+        digests[f"size {numel}"] = _digest(out)
         if numel * 4 > largest:
             expected_grows, largest = expected_grows + 1, numel * 4
-    result = {"differing": differing, "launches": kernel.launches,
+    result = {"differing": differing, "digests": digests, "launches": kernel.launches,
               "grows": ws.grows - grows_before, "expected_grows": expected_grows,
               "capacity": ws.capacity, "largest": largest}
 
-    if time_mbytes:
-        numel = int(time_mbytes * 2**20 / 4)
+    if time_mib:
+        numel = int(time_mib * 2**20 / 4)
         xs = torch.stack([ring_payload(numel, torch.float32, q, seed, device)
                           for q in range(n)])
         x = xs[r]
@@ -249,6 +264,7 @@ def _ring_rank(seed: int, time_mbytes: float, iters: int) -> dict:
         expected = reference(xs)[r]
         result["timed_differing"] = _bits_differing(out, expected)
         result["timed_max_abs_err"] = float((out - expected).abs().max())
+        result["timed_digest"] = _digest(out)
         del expected
         result.update(trace_ring_calls(x, iters))
         result["plain_ms"] = float("nan")
@@ -271,23 +287,30 @@ def trace_ring_calls(x: torch.Tensor, iters: int) -> dict:
     profiler's start-up) and a barrier with the group: the device time of
     each launch (``kernel_ms``, its mean), the card's idle time between one
     launch's end and the next one's start on the stream (``gap_ms``, its
-    mean: host work that the stream waits for) and the host's time per
-    call (``host_ms``; the profiler slows the host, so both are upper
-    bounds).  Then, without the profiler, the host's time per call of the
-    wrapper's shape check over the control group alone (``check_ms``).
-    Raises if the trace does not hold one launch per call."""
+    mean: host work that the stream waits for), the host's time per call
+    (``host_ms``; the profiler slows the host, so both are upper bounds)
+    and the control-group collectives per call (``control_per_call``, 0
+    once the workspace fits).  Then ``iters`` calls without the profiler
+    that record the kernel's phases: per launch, the mean over blocks of
+    the ms each block's thread 0 spent waiting for arrivals, waiting for a
+    free slot and moving data (``phase_ms``), behind one unrecorded call
+    that takes up the ranks' skew.  Raises if the trace does not hold one
+    launch per call."""
     fn, kernel = pallas_ring.ring_all_reduce_pallas, "ring_kernel"
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    ws = pallas_ring.workspace(x.device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn(x)
         pallas_ring.synchronize()
         comm.barrier()
+        collectives = ws.collectives
         t0 = time.perf_counter()
         for _ in range(iters):
             fn(x)
         host_s = time.perf_counter() - t0
+        collectives = ws.collectives - collectives
         pallas_ring.synchronize()
     comm.barrier()
     launches = sorted((e for e in prof.events()
@@ -297,37 +320,47 @@ def trace_ring_calls(x: torch.Tensor, iters: int) -> dict:
              f"the trace holds {len(launches)} launches of {kernel}, not {iters + 1}")
     launches = launches[1:]  # the warm-up
     gaps = [b.time_range.start - a.time_range.end for a, b in zip(launches, launches[1:])]
-    control = pallas_ring.workspace(x.device).control
-    t0 = time.perf_counter()
+    phases = torch.zeros(3 * ws.blocks, dtype=torch.int64, device=x.device)
+    fn(x)  # takes up the ranks' skew at the start, so the recorded calls run back to back
     for _ in range(iters):
-        pallas_ring._check_same_call(control, x)
-    check_s = time.perf_counter() - t0
+        pallas_ring.ring_all_reduce_traced(x, phases)
+    pallas_ring.synchronize()
     comm.barrier()
+    per_block = phases.view(ws.blocks, 3).double().mean(0) / iters / 1e6
     return {"kernel_ms": sum(e.time_range.elapsed_us() for e in launches) / iters / 1e3,
             "gap_ms": sum(gaps) / max(len(gaps), 1) / 1e3,
-            "host_ms": host_s / iters * 1e3, "check_ms": check_s / iters * 1e3}
+            "host_ms": host_s / iters * 1e3, "control_per_call": collectives / iters,
+            "phase_ms": dict(zip(("wait_arrival", "wait_free", "move"), per_block.tolist()))}
 
 
-def check_ring(world: int, *, seed: int = 0, time_mbytes: float = 0.0, iters: int = 20) -> dict:
+def check_ring(world: int, *, seed: int = 0, time_mib: float = 0.0, iters: int = 20) -> dict:
     """The ring kernel at ``world`` ranks (processes) on the card: every
-    case bit for bit equal to the plain version on every rank, one launch
-    per call, the workspace grown exactly when a call was larger than any
-    before it.  Returns the per-rank results."""
-    res = comm.spmd(_ring_rank, seed, time_mbytes, iters, world=world, device="cuda")
+    case bit for bit equal to the plain version on every rank, every rank's
+    output the same bits as rank 0's, one launch per call, the workspace
+    grown exactly when a call was larger than any before it, and (with
+    ``time_mib``) no control-group collective per timed call.  Returns the
+    per-rank results."""
+    res = comm.spmd(_ring_rank, seed, time_mib, iters, world=world, device="cuda")
     calls = len(RING_CASES) + RING_BACK_TO_BACK + len(RING_SIZES)
     for label, counts in res["differing"].items():
         _require(counts.tolist() == [0] * world, f"world {world}, {label}: elements that "
                  f"differ per rank {counts.tolist()}")
+    digests = dict(res["digests"], **({"timed": res["timed_digest"]} if time_mib else {}))
+    for label, per_rank in digests.items():
+        _require(per_rank == [per_rank[0]] * world,
+                 f"world {world}, {label}: the ranks' outputs differ from rank 0's")
     _require(res["launches"].tolist() == [calls] * world,
              f"launches per rank {res['launches'].tolist()}, not {calls}")
     _require(bool((res["grows"] == res["expected_grows"]).all()),
              f"workspace grew {res['grows'].tolist()} times, not {res['expected_grows'].tolist()}")
     _require(bool((res["capacity"] == res["largest"]).all()),
              f"workspace holds {res['capacity'].tolist()} bytes, not {res['largest'].tolist()}")
-    if time_mbytes:
+    if time_mib:
         _require(res["timed_differing"].tolist() == [0] * world,
-                 f"world {world}, the timed {time_mbytes} MiB call: elements that differ "
+                 f"world {world}, the timed {time_mib} MiB call: elements that differ "
                  f"per rank {res['timed_differing'].tolist()}")
+        _require(res["control_per_call"].tolist() == [0.0] * world,
+                 f"control-group collectives per timed call {res['control_per_call'].tolist()}")
     return res
 
 
@@ -371,3 +404,60 @@ def check_ring_stuck_neighbour(timeout: float = 2.0) -> dict:
     _require(float(res["seconds"][0]) < 4 * timeout,
              f"rank 0 raised after {res['seconds'].tolist()} s, bound {timeout} s")
     return {"seconds": res["seconds"].tolist(), "message": res["message"][0]}
+
+
+# What rank 0 and rank 1 pass after a 4096-element float32 call: another
+# numel, another dtype (both fit the workspace: the kernel's stamp finds
+# them), and a size only rank 1 must grow for (the growth exchange's bound
+# ends rank 1's wait; rank 0's kernel times out).
+RING_MISMATCHES = {
+    "numel": ((4096, torch.float32), (4000, torch.float32)),
+    "dtype": ((4096, torch.float32), (4096, torch.int32)),
+    "growth": ((4096, torch.float32), (8192, torch.float32)),
+}
+
+
+def _mismatch_rank(kind: str, timeout: float) -> dict:
+    """One rank of `check_ring_mismatch`; sets the kernel's and the growth
+    exchange's bounds to ``timeout`` in this worker process."""
+    pallas_ring.TIMEOUT_S = pallas_ring.CONTROL_TIMEOUT_S = timeout
+    device = torch.device("cuda", torch.cuda.current_device())
+    r = comm.rank()
+    pallas_ring.ring_all_reduce_pallas(torch.ones(4096, device=device))
+    pallas_ring.synchronize()
+    comm.barrier()
+    numel, dtype = RING_MISMATCHES[kind][r]
+    t0 = time.perf_counter()
+    raised = ""
+    try:
+        pallas_ring.ring_all_reduce_pallas(torch.ones(numel, device=device, dtype=dtype))
+        pallas_ring.synchronize()
+    except (RuntimeError, ValueError) as e:
+        raised = str(e)
+    seconds = time.perf_counter() - t0
+    again = ""
+    try:
+        pallas_ring.ring_all_reduce_pallas(torch.ones(4096, device=device))
+    except RuntimeError as e:
+        again = str(e)
+    return {"raised": int(bool(raised)), "again": int(bool(again)), "seconds": seconds,
+            "message": raised}
+
+
+def check_ring_mismatch(timeout: float = 2.0) -> dict:
+    """World 2 on the card, a fresh world per case of `RING_MISMATCHES`:
+    both ranks raise within ``timeout`` plus a margin (the numel and dtype
+    cases with the kernel's mismatch error), later calls raise too, and
+    nothing hangs."""
+    out = {}
+    for kind in RING_MISMATCHES:
+        res = comm.spmd(_mismatch_rank, kind, timeout, world=2, device="cuda", timeout=120)
+        _require(res["raised"].tolist() == [1, 1], f"{kind}: raised per rank: {res}")
+        _require(res["again"].tolist() == [1, 1], f"{kind}: a broken workspace took a call: {res}")
+        _require(max(res["seconds"].tolist()) < timeout + 5.0,
+                 f"{kind}: raised after {res['seconds'].tolist()} s, bound {timeout} s")
+        if kind != "growth":
+            _require(all("different shapes or dtypes" in m for m in res["message"]),
+                     f"{kind}: messages {res['message']}")
+        out[kind] = {"seconds": res["seconds"].tolist(), "messages": res["message"]}
+    return out
