@@ -10,16 +10,18 @@ the exit code is nonzero:
 [build]   the nvcc build of every kernel source, all started together, with
           each build's seconds and ptxas's registers and spills.
 [matmul]  the fused-dense kernel against its plain version on the card, at
-          the main path's four shapes and a few others; times from CUDA
-          events, and the least time the card could take (bound_ms).
+          the main path's four shapes and a few others, each with the route
+          and tiles `dense_tiling` picked; times from CUDA events, beside
+          ``torch.addmm`` plus the epilogue and the least time the card
+          could take (bound_ms).
 [main]    the entry point ``python -m tpu_dist_torch.demos.train_dist
           --epochs 1`` with TPU_DIST_PALLAS_DENSE=1 (NCCL, world 1,
           synthetic MNIST: 468 steps of 128, then evaluation), its kernel
           launch count, loss and accuracy; then one training step from the
           same state on the card and on the CPU.
 [flash]   the flash-attention kernels of each case's route (`flash_route`:
-          the tensor-core forward and dK/dV for bfloat16 and float16 at
-          head dims 64 and 128, the SIMT ones otherwise; dQ SIMT) against
+          the tensor-core forward, dK/dV and dQ for bfloat16 and float16 at
+          head dims 64 and 128, the SIMT ones otherwise) against
           their plain versions on the card, the launch counts showing which
           ran: the LM path's shape (q, k, v (16, 12, 1024, 64) bfloat16,
           causal), float32, float16, windowed, dense, ragged, head-dim-128
@@ -29,14 +31,14 @@ the exit code is nonzero:
           forward and forward + backward, the time of
           ``scaled_dot_product_attention`` on the same inputs, and for the
           backward pair (dK/dV + dQ) SDPA's forward + backward less its
-          forward; at the LM shape the SIMT forward and dK/dV timed too;
+          forward; at the LM shape the SIMT forward, dK/dV and dQ timed too;
           the count of dK elements that differ from the plain version at
           d = 8, float32.
 [lm]      ``LMTrainer.fit`` of the GPT-2-small-class TransformerLM (vocab
           32768, dim 768, depth 12, heads 12, rope, seq 1024, global batch
           16, bfloat16 compute) with TPU_DIST_FLASH=1 for two epochs, its
-          flash launch counts (12 per step of the tensor-core forward and
-          dK/dV and of dQ, none of the SIMT forward and dK/dV), tokens/s and
+          flash launch counts (12 per step of the tensor-core forward, dK/dV
+          and dQ, none of the SIMT kernels), tokens/s and
           losses; the kernels' share of a profiled step; then one step of a
           small float32 LM on the card (the SIMT route: its launch counts)
           and on the CPU, losses and gradients compared.
@@ -60,11 +62,13 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import math
 import os
 import platform
+import re
 import subprocess
 import sys
 import time
@@ -132,6 +136,8 @@ def bound(nbytes: int, n_ops: float, dtype: torch.dtype) -> tuple[float, str]:
 
 
 def matmul_cases(device, ops, F) -> list[dict]:
+    dense_tiling = importlib.import_module("tpu_dist_torch.ops.matmul").dense_tiling
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     library_epilogue = {
         "none": lambda y: y,
         "relu": F.relu,
@@ -166,6 +172,7 @@ def matmul_cases(device, ops, F) -> list[dict]:
         )
         rows.append({
             "m": m, "k": k, "n": n, "epilogue": epilogue, "dtype": str(dtype)[6:],
+            "tiling": dataclasses.asdict(dense_tiling(m, n, k, sms)),
             "max_abs_err": (got.float() - want.float()).abs().max().item(),
             "tol": tol, "timing": f"CUDA graph of {iters} launches",
             "ms": time_ms(lambda: ops.fused_dense(x, w, b, epilogue), iters),
@@ -292,13 +299,14 @@ def main_path(device, ops, card_name) -> dict:
 FLASH_REPLACES = {  # wrapper: (TPU kernel, CUDA source)
     "flash_fwd_sm90": ("tpu_dist/ops/flash_attention.py:47", "flash_attention_sm90.cu"),
     "flash_dkv_sm90": ("tpu_dist/ops/flash_attention.py:184", "flash_attention_sm90.cu"),
-    "flash_dq": ("tpu_dist/ops/flash_attention.py:233", "flash_attention.cu"),
+    "flash_dq_sm90": ("tpu_dist/ops/flash_attention.py:233", "flash_attention_sm90.cu"),
     "flash_fwd_simt": ("tpu_dist/ops/flash_attention.py:47", "flash_attention.cu"),
     "flash_dkv_simt": ("tpu_dist/ops/flash_attention.py:184", "flash_attention.cu"),
+    "flash_dq_simt": ("tpu_dist/ops/flash_attention.py:233", "flash_attention.cu"),
 }
 # one attention call of the [lm] path: (batch, heads, S, head_dim)
 LM_ATTENTION = (16, 12, 1024, 64)
-LM_ROUTE = ("flash_fwd_sm90", "flash_dkv_sm90", "flash_dq")  # the kernels it launches
+LM_ROUTE = ("flash_fwd_sm90", "flash_dkv_sm90", "flash_dq_sm90")  # the kernels it launches
 
 
 def visible_fraction(S: int, causal: bool, window, flops, fa) -> float:
@@ -363,7 +371,7 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
         # (function, wrapper, its error against the plain version)
         calls = [("flash_fwd", f"flash_fwd_{route}", errs["flash_fwd"]),
                  ("flash_dkv", f"flash_dkv_{route}", errs["flash_dkv"]),
-                 ("flash_dq", "flash_dq", errs["flash_dq"])]
+                 ("flash_dq", f"flash_dq_{route}", errs["flash_dq"])]
         if label == "lm":  # the SIMT kernels on the same inputs, for comparison
             calls += simt_errors(fa, checks, fwd_args, bwd_args, kw)
         iters = 10 if S >= 1024 else 50
@@ -427,21 +435,24 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
 
 
 def simt_errors(fa, checks, fwd_args, bwd_args, kw) -> list:
-    """The SIMT forward and dK/dV on inputs that the tensor-core route
+    """The SIMT forward, dK/dV and dQ on inputs that the tensor-core route
     takes, held to the plain versions (its tolerance): what they are timed
     beside."""
     tol = checks.FLASH_TOL[fwd_args[0].dtype]
     out, _ = fa.flash_fwd_simt(*fwd_args, **kw)
     dk, dv = fa.flash_dkv_simt(*bwd_args, **kw)
+    dq = fa.flash_dq_simt(*bwd_args, **kw)
     want_out, _ = fa.flash_fwd_reference(*fwd_args, **kw)
     want_dk, want_dv = fa.flash_dkv_reference(*bwd_args, **kw)
+    want_dq = fa.flash_dq_reference(*bwd_args, **kw)
     torch.cuda.synchronize()
     errs = []
-    for got, want in [(out, want_out), (dk, want_dk), (dv, want_dv)]:
+    for got, want in [(out, want_out), (dk, want_dk), (dv, want_dv), (dq, want_dq)]:
         torch.testing.assert_close(got, want, **tol)
         errs.append((got.float() - want.float()).abs().max().item())
     return [("flash_fwd", "flash_fwd_simt", errs[0]),
-            ("flash_dkv", "flash_dkv_simt", max(errs[1:]))]
+            ("flash_dkv", "flash_dkv_simt", max(errs[1:3])),
+            ("flash_dq", "flash_dq_simt", errs[3])]
 
 
 def backward_pair(rows, label, route, library_step_ms, work, dtype) -> dict:
@@ -451,12 +462,12 @@ def backward_pair(rows, label, route, library_step_ms, work, dtype) -> dict:
     def row_of(name):
         return next(r for r in rows if r["case"] == label and r["kernel"] == name)
 
-    fwd, dkv, dq = row_of(f"flash_fwd_{route}"), row_of(f"flash_dkv_{route}"), row_of("flash_dq")
+    fwd, dkv, dq = (row_of(f"flash_{fn}_{route}") for fn in ("fwd", "dkv", "dq"))
     bound_ms, bound_by = bound(work["flash_dkv"][0] + work["flash_dq"][0],
                                work["flash_dkv"][1] + work["flash_dq"][1], dtype)
     return {
         "kernel": "flash backward pair (dK/dV + dQ)", "case": label,
-        "kernels": [dkv["kernel"], "flash_dq"], "ms": dkv["ms"] + dq["ms"],
+        "kernels": [dkv["kernel"], dq["kernel"]], "ms": dkv["ms"] + dq["ms"],
         "plain_ms": dkv["plain_ms"] + dq["plain_ms"],
         "library_ms": library_step_ms - fwd["library_ms"],
         "library": "SDPA forward + backward less SDPA forward, same inputs",
@@ -467,7 +478,8 @@ def backward_pair(rows, label, route, library_step_ms, work, dtype) -> dict:
 def profile_steps(trainer, tokens, steps: int, card_name: str) -> dict:
     """Device time by kernel over a few training steps, from
     ``torch.profiler``, summed by kind of kernel (by name); the flash
-    kernels' share of it, and the share of the profiled steps' wall time
+    kernels' share of it and each flash kernel's time, and the share of the
+    profiled steps' wall time
     the card was busy (the profiler slows the host, so this share is a
     floor)."""
     from torch.autograd import DeviceType
@@ -493,12 +505,19 @@ def profile_steps(trainer, tokens, steps: int, card_name: str) -> dict:
         kind = next((k for k, tags in kinds.items()
                      if any(t in e.key.lower() for t in tags)), "other")
         by_kind[kind] += e.self_device_time_total / steps / 1e3
+    flash = {}  # ms per step of each flash kernel, by its name in the source
+    for e in kernels:
+        name = re.search(r"flash_\w+_kernel", e.key)
+        if name:
+            flash[name[0]] = flash.get(name[0], 0.0) + e.self_device_time_total / steps / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     out = {
         "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
         "device_ms_per_step": device_us / steps / 1e3,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
         "device_ms_per_step_by_kind": by_kind,
         "flash_share_of_device_time": by_kind["flash"] * steps * 1e3 / device_us,
+        "flash_ms_per_step_by_kernel": flash,
         "device_busy_share_of_wall": device_us / wall_us,
         "card": card_name,
         "top_kernels": [{"name": e.key[:120], "ms_per_step": e.self_device_time_total
@@ -552,7 +571,7 @@ def lm_path(device, fa, card_name) -> dict:
               f"{stats.tokens_per_sec} tokens/s, {stats.seconds} s, {rate / 1e12} model "
               f"TFLOP/s ({step_flops / 1e12} TFLOP per step), {rate / peak} of the bf16 "
               f"peak, on {card_name}", flush=True)
-    # bfloat16 at head dim 64: the tensor-core forward and dK/dV, and dQ
+    # bfloat16 at head dim 64: the tensor-core forward, dK/dV and dQ
     expected = {name: depth * steps if name in LM_ROUTE else 0 for name in launches}
     print(f"[lm] fit wall time {wall} s; peak device memory {peak_gb} GB; flash launches "
           f"{launches} (expected {expected}: {depth} x {steps} steps)", flush=True)
@@ -723,6 +742,7 @@ def main() -> None:
         "library_ms": sum(r["library_ms"] for r in step),
         "work": "one training step's two launches: 128x320x50 + 128x50x10 (MxKxN), "
                 "float32, epilogue none",
+        "tiling": [r["tiling"] for r in step],
     }
     kernels = [kernel]
     pair = next(r for r in flash_rows if r["case"] == "lm" and "pair" in r["kernel"])
@@ -741,10 +761,10 @@ def main() -> None:
                     "q, k, v (16, 12, 1024, 64) float32, causal; launches: the [lm] small "
                     "float32 LM step (2 blocks), which takes the SIMT route",
         }
-        if name in ("flash_dkv_sm90", "flash_dq"):
+        if name in ("flash_dkv_sm90", "flash_dq_sm90"):
             entry["backward_pair"] = {
                 key: pair[key] for key in ("kernels", "ms", "library_ms", "library")}
-        if name in ("flash_fwd_sm90", "flash_dkv_sm90"):  # the same [lm] inputs, SIMT
+        if on_lm:  # the same [lm] inputs, SIMT
             simt = next(r for r in flash_rows
                         if r["case"] == "lm" and r["kernel"] == name.replace("sm90", "simt"))
             entry["simt_ms_same_inputs"] = simt["ms"]

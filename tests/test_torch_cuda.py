@@ -1,6 +1,7 @@
-"""The CUDA kernels against their plain versions, on the card: fused dense,
-the flash-attention kernels (the tensor-core forward and dK/dV, the SIMT
-forward, dK/dV and dQ) and the ring all-reduce across processes.  The flash and ring checks are the port's own
+"""The CUDA kernels against their plain versions, on the card: fused dense
+(both routes), the flash-attention kernels (the tensor-core forward, dK/dV
+and dQ, the SIMT forward, dK/dV and dQ) and the ring all-reduce across
+processes.  The flash and ring checks are the port's own
 (`tpu_dist_torch.ops.checks`), which ``chip_smoke.py`` runs too.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from tpu_dist_torch.ops import checks, fused_dense, matmul, matmul_reference, pallas_ring
+from tpu_dist_torch.ops.matmul import dense_tiling
 
 # the module (the package exports its function of the same name)
 fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
@@ -63,6 +65,30 @@ def test_kernel_without_bias(card):
     x, w, _ = _inputs((100, 60, 40), torch.float32, card, bias=False)
     torch.testing.assert_close(fused_dense(x, w, None), matmul_reference(x, w, None),
                                **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("epilogue", ["none", "relu", "gelu"])
+@pytest.mark.parametrize("shape", SHAPES[:4], ids=lambda s: "x".join(map(str, s)))
+def test_small_route_matches_plain_version_at_mnist_shapes(card, shape, epilogue, bias):
+    """The MNIST layers take the small route (K split over warps, one
+    round trip to memory), with and without bias, under every epilogue."""
+    m, k, n = shape
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert dense_tiling(m, n, k, sms).route == "small"
+    x, w, b = _inputs(shape, torch.float32, card, bias=bias)
+    got = fused_dense(x, w, b, epilogue)
+    torch.testing.assert_close(got, matmul_reference(x, w, b, epilogue), **TOL[torch.float32])
+
+
+def test_both_routes_are_the_same_from_run_to_run(card):
+    """The small route adds the warps' partial sums in warp order, and the
+    large route owns each output in one thread: the same bits every run."""
+    for shape in [(128, 320, 50), (4096, 512, 2048)]:
+        x, w, b = _inputs(shape, torch.float32, card)
+        first = fused_dense(x, w, b, "gelu")
+        for _ in range(3):
+            assert torch.equal(fused_dense(x, w, b, "gelu"), first)
 
 
 @pytest.mark.parametrize("epilogue", ["none", "gelu"])
@@ -118,24 +144,49 @@ def test_flash_kernels_match_plain_versions(card, mask, shape, d, dtype):
 
 def test_flash_kernels_past_2_31_elements(card):
     """(bh, S, d) bfloat16 arrays of more than 2^31 elements at d = 128:
-    the tensor-core kernels' (d, S, bh) TMA coordinates and 64-bit stores,
-    and the SIMT dQ's 64-bit offsets."""
+    the tensor-core forward's, dK/dV's and dQ's (d, S, bh) TMA coordinates
+    and 64-bit loads and stores."""
     assert checks.check_flash_past_2_31(card)["route"] == "sm90"
 
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_sm90_is_the_same_from_run_to_run(card, d):
-    """No atomics: each block owns its output rows, so two runs of the
-    tensor-core forward and dK/dV on the same inputs agree bit for bit."""
+    """No atomics: each block owns its output rows, so runs of the
+    tensor-core forward, dK/dV and dQ on the same inputs agree bit for
+    bit."""
     q, k, v, go = checks.flash_inputs(24, 1024, d, torch.bfloat16, card, seed=7)
     out, lse = fa.flash_fwd_sm90(q, k, v, causal=True)
     delta = (go.float() * out.float()).sum(-1)
     runs = [fa.flash_dkv_sm90(q, k, v, go, lse, delta, causal=True) for _ in range(3)]
+    dqs = [fa.flash_dq_sm90(q, k, v, go, lse, delta, causal=True) for _ in range(3)]
     again = fa.flash_fwd_sm90(q, k, v, causal=True)
     torch.cuda.synchronize()
     for dk, dv in runs[1:]:
         assert torch.equal(dk, runs[0][0]) and torch.equal(dv, runs[0][1])
+    for dq in dqs[1:]:
+        assert torch.equal(dq, dqs[0])
     assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("d", [64, 128], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("shape", [(3, 128), (2, 129), (1, 1000), (2, 1024)],
+                         ids=lambda s: f"bh{s[0]}-S{s[1]}")
+@pytest.mark.parametrize("mask", MASKS, ids=lambda m: f"causal{int(m[0])}-w{m[1]}")
+def test_flash_dq_sm90_matches_plain_version(card, mask, shape, d, dtype):
+    """The tensor-core dQ alone, against `flash_dq_reference` on the plain
+    forward's lse and D: unmasked, causal and windowed, ragged S (129 and
+    1000 end inside a 64-key and a 128-query tile)."""
+    causal, window = mask
+    q, k, v, go = checks.flash_inputs(*shape, d, dtype, card, seed=11)
+    out, lse = fa.flash_fwd_reference(q, k, v, causal=causal, window=window)
+    delta = (go.float() * out.float()).sum(-1)
+    before = fa.flash_dq_sm90.launches
+    got = fa.flash_dq_sm90(q, k, v, go, lse, delta, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_dq_sm90.launches == before + 1 and got.dtype == dtype
+    want = fa.flash_dq_reference(q, k, v, go, lse, delta, causal=causal, window=window)
+    torch.testing.assert_close(got, want, **checks.FLASH_TOL[dtype])
 
 
 def _dense_attention(q, k, v, causal, window):
@@ -158,7 +209,7 @@ def test_flash_attention_grads_on_card(card, seq, mask):
     q, k, v = (torch.randn(2, 3, seq, 16, generator=g, device=card).requires_grad_()
                for _ in range(3))
     cot = torch.randn(2, 3, seq, 16, generator=g, device=card)
-    kernels = (fa.flash_fwd_simt, fa.flash_dkv_simt, fa.flash_dq)  # float32: SIMT
+    kernels = (fa.flash_fwd_simt, fa.flash_dkv_simt, fa.flash_dq_simt)  # float32: SIMT
     before = [kernel.launches for kernel in kernels]
     fa.flash_attention(q, k, v, causal=causal, window=window, bq=32, bk=32).backward(cot)
     assert [kernel.launches for kernel in kernels] == [n + 1 for n in before]
@@ -202,13 +253,19 @@ def test_flash_sm90_wrappers_refuse_what_tma_cannot_take(card):
         fa.flash_fwd_sm90(q, k, v)
     with pytest.raises(ValueError, match="bfloat16 or float16"):
         fa.flash_dkv_sm90(q, k, v, go, lse, lse)
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
+        fa.flash_dq_sm90(q, k, v, go, lse, lse)
     odd = checks.flash_inputs(2, 128, 96, torch.bfloat16, card)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_fwd_sm90(*odd[:3])
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_dq_sm90(*odd, lse, lse)
     flat = torch.zeros(2 * 128 * 64 + 1, device=card, dtype=torch.bfloat16)
     shifted = flat[1:].view(2, 128, 64)  # contiguous, 2 bytes off alignment
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_fwd_sm90(shifted, shifted, shifted)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_dq_sm90(shifted, shifted, shifted, shifted, lse, lse)
     assert [kernel.launches for kernel in fa.KERNELS] == before
 
 

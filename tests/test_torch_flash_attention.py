@@ -6,8 +6,8 @@ Inputs come from numpy with a seed and go to both.  Tolerances are the JAX
 tests': 2e-5 for float32 values and lse, 2e-4 for gradients (float32 sums
 over S in another order, and the backward's extra products).  The
 tile-range helpers, which the CUDA kernels mirror, are checked against the
-brute-force mask, and the route and tile order of the tensor-core kernels
-are checked here too.
+brute-force mask, and the route, the dispatch to the route's wrappers and
+the tile order of the tensor-core kernels are checked here too.
 """
 
 import importlib
@@ -197,18 +197,46 @@ def test_route_takes_tensor_cores_for_16_bit_types_at_64_and_128(dtype, d):
 @pytest.mark.parametrize("n", [1, 2, 7, 16])
 def test_sm90_tile_order_covers_every_tile_heaviest_first(n, causal):
     """Each kernel's launch order is a permutation of its tiles; under a
-    causal mask the tiles that scan the most of the other side go first."""
-    S, t, tq = n * fa.SM90_TILE, fa.SM90_TILE, fa.SM90_DKV_QUERY_TILE
+    causal mask the tiles that scan the most of the other side go first.
+    dQ takes query tiles as the forward does, scanning 64-key tiles."""
+    S, t, tq, tk = n * fa.SM90_TILE, fa.SM90_TILE, fa.SM90_DKV_QUERY_TILE, fa.SM90_DQ_KEY_TILE
     scans = {
         "fwd": lambda i: np.subtract(*fa.key_tile_range(i, S, t, t, causal=causal,
                                                         window=None)[::-1]),
         "dkv": lambda j: np.subtract(*fa.query_tile_range(j, S, tq, t, causal=causal,
                                                           window=None)[::-1]),
+        "dq": lambda i: np.subtract(*fa.key_tile_range(i, S, t, tk, causal=causal,
+                                                       window=None)[::-1]),
     }
     for kernel, scanned in scans.items():
         order = fa.sm90_tile_order(n, causal=causal, kernel=kernel)
         assert sorted(order) == list(range(n)), (kernel, order)
         work = [scanned(i) for i in order]
         assert work == sorted(work, reverse=True), (kernel, work)
+        if causal and n > 1:
+            assert work[0] > work[-1], (kernel, work)
     with pytest.raises(ValueError, match="kernel"):
-        fa.sm90_tile_order(n, causal=causal, kernel="dq")
+        fa.sm90_tile_order(n, causal=causal, kernel="bwd")
+
+
+@pytest.mark.parametrize("d", [8, 64, 100, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=lambda t: str(t)[6:])
+def test_dispatch_takes_the_wrapper_the_route_names(monkeypatch, dtype, d):
+    """`flash_fwd`, `flash_dkv` and `flash_dq` hand the call to the route's
+    wrapper: ``flash_dq_sm90`` for bfloat16 and float16 at d = 64 and 128,
+    ``flash_dq_simt`` otherwise (the wrappers are stood in for here; they
+    launch kernels only on the card)."""
+    called = []
+    for kernel in fa.KERNELS:
+        name = kernel.__name__
+        monkeypatch.setattr(fa, name, lambda *a, _name=name, **kw: called.append(_name))
+    route = fa.flash_route(dtype, d)
+    q = torch.zeros(1, 128, d, dtype=dtype)
+    rows = torch.zeros(1, 128)
+    fa.flash_fwd(q, q, q, causal=True)
+    fa.flash_dkv(q, q, q, q, rows, rows, causal=True)
+    fa.flash_dq(q, q, q, q, rows, rows, causal=True)
+    assert called == [f"flash_fwd_{route}", f"flash_dkv_{route}", f"flash_dq_{route}"]
+    sm90 = dtype in (torch.bfloat16, torch.float16) and d in (64, 128)
+    assert (called[-1] == "flash_dq_sm90") == sm90

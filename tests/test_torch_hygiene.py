@@ -73,7 +73,7 @@ def test_cpu_flash_never_touches_the_build(monkeypatch):
     monkeypatch.setattr(_build, "build", refuse)
     monkeypatch.setenv("TPU_DIST_FLASH", "1")
     counters = fa.KERNELS
-    assert len(counters) == 5  # the forward and dK/dV of both routes, and dQ
+    assert len(counters) == 6  # the forward, dK/dV and dQ of both routes
     before = [k.launches for k in counters]
     lm = models.TransformerLM(vocab=16, dim=16, depth=1, heads=2, max_seq=128)
     tokens = models.synthetic_tokens(2, 128, 16)

@@ -4,8 +4,8 @@ One copy of each check, called by the card tests (`tests/test_torch_cuda.py`)
 and by ``chip_smoke.py``:
 
 - `check_flash_kernels`: the flash kernels of the route `flash_route`
-  names (tensor-core forward and dK/dV for bfloat16 and float16 at d = 64
-  and 128, SIMT otherwise; dQ SIMT) against their plain versions on given
+  names (tensor-core forward, dK/dV and dQ for bfloat16 and float16 at
+  d = 64 and 128, SIMT otherwise) against their plain versions on given
   inputs (any head dim up to 256, float32, bfloat16 or float16), with the
   launch counts that show which kernels ran and the count of dK elements
   that differ at all;
@@ -70,9 +70,9 @@ def _launch_counts() -> dict:
 
 
 def _require_route(before: dict, route: str) -> None:
-    """Since ``before``, the forward and dK/dV wrappers of ``route`` and dQ
-    each launched one kernel, and no other wrapper launched any."""
-    ran = {f"flash_fwd_{route}", f"flash_dkv_{route}", "flash_dq"}
+    """Since ``before``, the forward, dK/dV and dQ wrappers of ``route`` each
+    launched one kernel, and no other wrapper launched any."""
+    ran = {f"flash_fwd_{route}", f"flash_dkv_{route}", f"flash_dq_{route}"}
     want = {name: n + (name in ran) for name, n in before.items()}
     got = _launch_counts()
     _require(got == want, f"flash launches {got}, expected {want} (route {route})")
@@ -82,8 +82,8 @@ def check_flash_kernels(q, k, v, go, *, causal: bool, window: int | None,
                         exact_dk: bool = False) -> dict:
     """Forward (out, lse), dK/dV and dQ against the plain versions, the
     backward kernels fed the plain forward's lse and D = rowsum(dO * out);
-    the route's forward and dK/dV wrappers and dQ each launched once, no
-    other wrapper.  Returns the route, the plain lse and D (for timing) and,
+    the route's forward, dK/dV and dQ wrappers each launched once, no other
+    wrapper.  Returns the route, the plain lse and D (for timing) and,
     per kernel, the max |difference|; ``dk_differing`` counts dK elements that differ at all,
     and ``exact_dk`` requires it to be 0: in float32 the kernel sums dS^T Q
     in query order with one FMA accumulator and scales once after the sum,
@@ -120,7 +120,7 @@ def check_flash_kernels(q, k, v, go, *, causal: bool, window: int | None,
 
 def check_flash_past_2_31(device, *, S: int = 256, d: int = 128, heads_checked: int = 2) -> dict:
     """bfloat16 causal (bh, S, d) with bh * S * d just past 2^31: all three
-    kernels of the route (at d = 128 the tensor-core forward and dK/dV,
+    kernels of the route (at d = 128 the tensor-core forward, dK/dV and dQ,
     whose TMA coordinates are (d, S, bh)) run on the whole array, and the
     last ``heads_checked`` heads, which start past element 2^31, are held to
     the plain version."""

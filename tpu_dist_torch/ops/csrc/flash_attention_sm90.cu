@@ -1,31 +1,34 @@
-// Flash attention for Hopper's tensor cores (sm_90a): the forward and dK/dV
-// kernels on `wgmma`, fed by TMA, for bfloat16 and float16 at head dims 64
-// and 128.
+// Flash attention for Hopper's tensor cores (sm_90a): the forward, dK/dV
+// and dQ kernels on `wgmma`, fed by TMA, for bfloat16 and float16 at head
+// dims 64 and 128.
 //
-// Replaces, on that domain, two Pallas TPU kernels of
+// Replaces, on that domain, the three Pallas TPU kernels of
 // tpu_dist/ops/flash_attention.py (the SIMT kernels of flash_attention.cu
-// take float32, every other head dim, and dQ):
+// take float32 and every other head dim):
 //   flash_fwd_sm90_kernel <- `_flash_kernel` (:47): streaming softmax over
 //                            key tiles; writes out and the per-row LSE.
 //   flash_dkv_sm90_kernel <- `_dkv_kernel` (:184): one block per key tile,
 //                            scanning query tiles; dV = P^T dO and
 //                            dK = dS^T Q scale, P = exp(Q K^T scale - lse),
 //                            dS = P * (dO V^T - D).
-// Same contract as the SIMT kernels: q, k, v (bh, S, d); out, dk, dv in the
-// input type; lse (bh, S) float32; masked probabilities exactly 0 (masked
+//   flash_dq_sm90_kernel  <- `_dq_kernel` (:233): one block per query tile,
+//                            scanning key tiles; dQ = dS K scale.
+// Same contract as the SIMT kernels: q, k, v (bh, S, d); out, dk, dv, dq in
+// the input type; lse (bh, S) float32; masked probabilities exactly 0 (masked
 // scores are -inf here, and 2^-inf is 0; the running max starts at -1e30,
 // NEG_INF); any S (the ragged last tile is masked); 64-bit
 // extents (TMA takes (d, S, bh) coordinates, so bh * S * d may pass 2^31).
 // Every product accumulates in float32; P and dS are rounded to the input
 // type before the products that take them (as FlashAttention-2/3 and SDPA
-// do), the softmax statistics stay float32.  dK is multiplied by `scale`
-// once, at write-out.
+// do), the softmax statistics stay float32.  dK and dQ are multiplied by
+// `scale` once, at write-out.
 //
 // What bounds it.  At the LM shape (bh 192, S 1024, d 64, causal) the
 // forward does 2 products of 2*bh*S^2*d FLOP at the causal fraction, about
 // 26 GFLOP, on 101 MB (q, k, v read, out written): 255 FLOP per byte, near
 // the bf16 ridge (295), so bytes and tensor cores bound it alike, about
-// 0.03 ms; dK/dV does 4 products on 152 MB, and the tensor cores bound it.
+// 0.03 ms; dK/dV does 4 products on 152 MB and dQ 3 on 126 MB, and the
+// tensor cores bound both.
 // The SIMT kernels ran every product as float32 FMAs from shared memory,
 // about 23 TFLOP/s.  Here every product is a `wgmma`, and the operands
 // reach shared memory by TMA, so no thread spends instructions on loads.
@@ -54,16 +57,28 @@
 //   dK += dS^T Q with dO and Q read MN-major.  Each block owns its output
 //   rows: no atomics, the same gradients from run to run.  Shared memory:
 //   82 KB at d = 64, 163 KB at d = 128.
+// - dQ: a block per (128-row query tile, bh), heaviest causal tile first,
+//   as the forward; Q and dO stay resident, K and V stream in 64-row tiles,
+//   lse and D sit in registers for each row.  S = Q K^T and dP = dO V^T
+//   from shared memory (both K-major), P = exp(S scale - lse) and
+//   dS = P (dP - D) in S's accumulators, then dQ += dS K with dS as the
+//   A-from-registers operand and K read MN-major, the form of the forward's
+//   O += P V.  64-key tiles keep S, dP, dS and dQ (64 floats at d = 128) in
+//   a consumer's 240 registers with the next tile's products in flight.
+//   Each block owns its rows: no atomics.  Shared memory: 80 KB at d = 64,
+//   160 KB at d = 128.
 // - Wholly masked tiles are skipped with the TPU kernels' range formulas at
 //   these tiles (`key_tile_range(i, S, 128, 128)`,
-//   `query_tile_range(j, S, 64, 128)` in ops/flash_attention.py).
+//   `query_tile_range(j, S, 64, 128)`, `key_tile_range(i, S, 128, 64)` in
+//   ops/flash_attention.py).
 // - Within a warpgroup, the softmax of one tile runs while the tensor cores
 //   do the previous tile's second product: the next tile's score product
 //   issues first, then the current tile's P V (or dV/dK) product, and the
 //   warpgroup waits for the scores alone (FlashAttention-3's intra-warpgroup
 //   overlap); the two consumer warpgroups overlap each other besides.  The
 //   dK/dV kernel does so at d = 64; at d = 128 its accumulators leave no
-//   registers for a second tile in flight, and each tile runs in turn.
+//   registers for a second tile in flight, and each tile runs in turn.  The
+//   dQ kernel does so at both head dims.
 
 #include <cuda.h>  // CUtensorMap and the encoder's types (no -lcuda: see encoder())
 #include <cuda_bf16.h>
@@ -84,6 +99,7 @@ constexpr int kBoxCols = 64;          // 16-bit elements in one 128-byte swizzle
 constexpr int kRowBytes = 128;
 constexpr int kTile = 128;            // forward query/key tile, dK/dV key tile
 constexpr int kQTileDkv = 64;         // dK/dV query tile
+constexpr int kKTileDq = 64;          // dQ key tile
 constexpr int kStages = 3;  // the tile in use, the next one, one loading
 
 enum DType { kBFloat16 = 1, kFloat16 = 2 };  // the SIMT library's codes
@@ -854,6 +870,217 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+template <int D>
+struct DqLayout {  // byte offsets from the 1024-aligned base
+  static constexpr int kQBox = kTile * kRowBytes;     // (128 query rows, 64 columns)
+  static constexpr int kQTile = kQBox * (D / kBoxCols);
+  static constexpr int kKBox = kKTileDq * kRowBytes;  // (64 key rows, 64 columns)
+  static constexpr int kKTile = kKBox * (D / kBoxCols);
+  static constexpr int kQ = 0;
+  static constexpr int kO = kQTile;
+  static constexpr int kK = 2 * kQTile;  // kStages tiles each of K and V
+  static constexpr int kV = kK + kStages * kKTile;
+  static constexpr int kBars = kV + kStages * kKTile;  // qo_full, full[], empty[]
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// S = Q rows K tile^T and dP = dO rows V tile^T (64 x 64 each), all from
+// shared memory, both operands K-major.
+template <bool kBf16, int D>
+__device__ __forceinline__ void dq_scores(float (&sc)[32], float (&dp)[32], uint32_t q_rows,
+                                          uint32_t o_rows, uint32_t k_tile, uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t q_off = (kk / 4) * DqLayout<D>::kQBox + (kk % 4) * 32;
+    const uint32_t k_off = (kk / 4) * DqLayout<D>::kKBox + (kk % 4) * 32;
+    wgmma_ss_n64<kBf16>(sc, sw128_desc(q_rows + q_off, 16, 1024),
+                        sw128_desc(k_tile + k_off, 16, 1024), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t q_off = (kk / 4) * DqLayout<D>::kQBox + (kk % 4) * 32;
+    const uint32_t k_off = (kk / 4) * DqLayout<D>::kKBox + (kk % 4) * 32;
+    wgmma_ss_n64<kBf16>(dp, sw128_desc(o_rows + q_off, 16, 1024),
+                        sw128_desc(v_tile + k_off, 16, 1024), kk > 0);
+  }
+}
+
+// dQ (64 x D) += dS (64 x 64 keys, registers) K tile (64 keys x D, MN-major).
+template <bool kBf16, int D>
+__device__ __forceinline__ void dq_update(float (&dq)[D / 2], const uint32_t (&sf)[16],
+                                          uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kKTileDq / 16; ++kk) {
+    const uint64_t b = sw128_desc(k_tile + kk * 16 * kRowBytes, DqLayout<D>::kKBox, 1024);
+    if constexpr (D == 64) {
+      wgmma_rs_n64<kBf16>(dq, sf + 4 * kk, b);
+    } else {
+      wgmma_rs_n128<kBf16>(dq, sf + 4 * kk, b);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         T* __restrict__ dq, int S, float scale, int causal, int window) {
+  using L = DqLayout<D>;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int kBoxes = D / kBoxCols;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base + L::kQ, o_s = base + L::kO, k_s = base + L::kK, v_s = base + L::kV;
+  const uint32_t qo_full = base + L::kBars;
+  const uint32_t full = qo_full + 8, empty = full + 8 * kStages;  // + 8 * stage
+
+  const int bh = blockIdx.x;
+  // Under a causal mask the last query tiles scan the most keys: first.
+  const int i = causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : blockIdx.y;
+  const int q0 = i * kTile;
+  int lo, hi;
+  key_tile_range(i, S, kTile, kKTileDq, causal, window, &lo, &hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qo_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(qo_full, 2 * L::kQTile);
+      for (int h = 0; h < kBoxes; ++h) {
+        tma_load(q_s + h * L::kQBox, &q_map, qo_full, h * kBoxCols, q0, bh);
+        tma_load(o_s + h * L::kQBox, &do_map, qo_full, h * kBoxCols, q0, bh);
+      }
+      for (int j = lo, n = 0; j < hi; ++j, ++n) {
+        const int s = n % kStages;
+        mbar_wait(empty + 8 * s, ((n / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + 8 * s, 2 * L::kKTile);
+        for (int h = 0; h < kBoxes; ++h) {
+          const uint32_t off = s * L::kKTile + h * L::kKBox;
+          tma_load(k_s + off, &k_map, full + 8 * s, h * kBoxCols, j * kKTileDq, bh);
+          tma_load(v_s + off, &v_map, full + 8 * s, h * kBoxCols, j * kKTileDq, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int c = wg - 1;  // this warpgroup's query rows: q0 + 64c ..
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int row = c * 64 + (t / 32) * 16 + lane / 4;
+  const int qp[2] = {q0 + row, q0 + row + 8};
+  const int wg_q0 = q0 + c * 64;
+  const float sl2 = scale * kLog2e;
+  const size_t row_base = static_cast<size_t>(bh) * S;
+  float lse2[2], dd[2];  // lse * log2(e) and D of this thread's two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse2[r] = qp[r] < S ? lse[row_base + qp[r]] * kLog2e : 0.0f;
+    dd[r] = qp[r] < S ? delta[row_base + qp[r]] : 0.0f;
+  }
+  const uint32_t q_rows = q_s + c * 64 * kRowBytes, o_rows = o_s + c * 64 * kRowBytes;
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dq_acc[e] = 0.0f;
+  float sc[32], dp[32];  // S = Q K^T and dP = dO V^T: 64 queries x 64 keys
+  uint32_t sf[16];       // dS in the input type: 4 A fragments
+
+  const int count = hi - lo;
+  auto scores = [&](int n) {
+    const int s = n % kStages;
+    dq_scores<kBf16, D>(sc, dp, q_rows, o_rows, k_s + s * L::kKTile, v_s + s * L::kKTile);
+  };
+  auto probs = [&](int n) {  // dp becomes dS = P (dP - D), in float32
+    const int k0 = (lo + n) * kKTileDq;
+    const bool masked = k0 + kKTileDq > S || wg_q0 + 64 > S || (causal && k0 + 63 > wg_q0) ||
+                        (window > 0 && k0 <= wg_q0 + 63 - window);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int r = slot_row(e);
+      if (masked && !visible(qp[r], k0 + slot_col(e, lane), S, causal, window))
+        sc[e] = __uint_as_float(0xff800000u);  // -inf: P = 0
+      const float p = ex2(fmaf(sc[e], sl2, -lse2[r]));
+      dp[e] = p * (dp[e] - dd[r]);
+    }
+  };
+  auto update = [&](int n) {
+    dq_update<kBf16, D>(dq_acc, sf, k_s + (n % kStages) * L::kKTile);
+  };
+  auto landed = [&] {
+    fence_regs(dq_acc);
+    fence_regs(sf);
+  };
+
+  mbar_wait(qo_full, 0);
+  // As the forward: the score products of tile n + 1 issue before dQ's
+  // product of tile n, and tile n + 1's dS is formed while that runs.
+  if (count > 0) {
+    mbar_wait(full, 0);
+    wgmma_fence();
+    scores(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    probs(0);
+  }
+  // dQ's product of tile n - 1 has landed (nothing in flight at n = 0): its
+  // stage is free, and dS of tile n takes the input type.
+  auto take_tile = [&](int n) {
+    wgmma_wait<0>();
+    landed();
+    if (n > 0) mbar_arrive(empty + 8 * ((n - 1) % kStages));
+#pragma unroll
+    for (int e = 0; e < 16; ++e) sf[e] = pack2<T>(dp[2 * e], dp[2 * e + 1]);
+  };
+  for (int n = 0; n + 1 < count; ++n) {
+    take_tile(n);
+    mbar_wait(full + 8 * ((n + 1) % kStages), ((n + 1) / kStages) & 1);
+    wgmma_fence();
+    scores(n + 1);
+    wgmma_commit();
+    update(n);
+    wgmma_commit();
+    wgmma_wait<1>();  // the scores of tile n + 1; dQ's product of tile n may still run
+    fence_regs(sc);
+    fence_regs(dp);
+    probs(n + 1);
+  }
+  if (count > 0) {
+    take_tile(count - 1);
+    wgmma_fence();
+    update(count - 1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();  // on every path, so the epilogue reads dQ after it
+  landed();
+  if (count > 0) mbar_arrive(empty + 8 * ((count - 1) % kStages));
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qp[r] >= S) continue;
+    T* dst = dq + (row_base + qp[r]) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int b = 0; b < D / 8; ++b)
+      *reinterpret_cast<uint32_t*>(dst + 8 * b) =
+          pack2<T>(dq_acc[4 * b + 2 * r] * scale, dq_acc[4 * b + 2 * r + 1] * scale);
+  }
+}
+
 // ------------------------------------------------------------------- host
 
 constexpr int kErrNoEncoder = 2000;  // the driver has no cuTensorMapEncodeTiled
@@ -922,7 +1149,7 @@ struct Call {
   const void* dout;
   const float* lse_in;
   const float* delta;
-  void* out;   // out or dk
+  void* out;   // out, dk or dq
   void* out2;  // dv
   float* lse_out;
   int bh, S, d, dtype, causal, window;
@@ -957,18 +1184,45 @@ int run_dkv(const Call& a) {
                 static_cast<T*>(a.out2), a.S, a.scale, a.causal, a.window);
 }
 
-template <bool kFwd, typename T>
+template <typename T, int D>
+int run_dq(const Call& a) {
+  CUtensorMap maps[4];
+  const void* src[4] = {a.q, a.k, a.v, a.dout};
+  const int rows[4] = {kTile, kKTileDq, kKTileDq, kTile};
+  for (int i = 0; i < 4; ++i) {
+    const int err = make_map(&maps[i], src[i], a.dtype, a.bh, a.S, D, rows[i]);
+    if (err) return err;
+  }
+  return launch(flash_dq_sm90_kernel<T, D>, DqLayout<D>::kBytes, a.bh, a.S, a.stream, maps[0],
+                maps[1], maps[2], maps[3], a.lse_in, a.delta, static_cast<T*>(a.out), a.S,
+                a.scale, a.causal, a.window);
+}
+
+enum Pass { kFwd, kDkv, kDq };
+
+template <Pass kPass, typename T, int D>
+int run(const Call& a) {
+  if constexpr (kPass == kFwd) {
+    return run_fwd<T, D>(a);
+  } else if constexpr (kPass == kDkv) {
+    return run_dkv<T, D>(a);
+  } else {
+    return run_dq<T, D>(a);
+  }
+}
+
+template <Pass kPass, typename T>
 int pick_width(const Call& a) {
-  if (a.d == 64) return kFwd ? run_fwd<T, 64>(a) : run_dkv<T, 64>(a);
-  if (a.d == 128) return kFwd ? run_fwd<T, 128>(a) : run_dkv<T, 128>(a);
+  if (a.d == 64) return run<kPass, T, 64>(a);
+  if (a.d == 128) return run<kPass, T, 128>(a);
   return cudaErrorInvalidValue;
 }
 
-template <bool kFwd>
+template <Pass kPass>
 int dispatch(const Call& a) {
   if (a.bh <= 0 || a.S <= 0 || (a.S + kTile - 1) / kTile > 65535) return cudaErrorInvalidValue;
-  if (a.dtype == kBFloat16) return pick_width<kFwd, __nv_bfloat16>(a);
-  if (a.dtype == kFloat16) return pick_width<kFwd, __half>(a);
+  if (a.dtype == kBFloat16) return pick_width<kPass, __nv_bfloat16>(a);
+  if (a.dtype == kFloat16) return pick_width<kPass, __half>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -985,7 +1239,7 @@ extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v, void*
                               int window, void* stream) {
   const Call a{q,   k,  v, nullptr, nullptr, nullptr, out,    nullptr, lse,
                bh,  S,  d, dtype,   causal,  window,  scale, static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(a);
+  return dispatch<kFwd>(a);
 }
 
 extern "C" int flash_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
@@ -994,7 +1248,15 @@ extern "C" int flash_dkv_sm90(const void* q, const void* k, const void* v, const
                               void* stream) {
   const Call a{q,  k, v, dout,  lse,    delta,  dk,    dv, nullptr,
                bh, S, d, dtype, causal, window, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(a);
+  return dispatch<kDkv>(a);
+}
+
+extern "C" int flash_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, const float* delta, void* dq, int bh, int S, int d,
+                             float scale, int dtype, int causal, int window, void* stream) {
+  const Call a{q,  k, v, dout,  lse,    delta,  dq,    nullptr, nullptr,
+               bh, S, d, dtype, causal, window, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<kDq>(a);
 }
 
 extern "C" const char* flash_sm90_error_string(int code) {

@@ -6,9 +6,9 @@
 // tanh-gelu, float32 or bfloat16 inputs, float32 accumulation, output in the
 // input type.  Not the same blocking: the TPU kernel walks a sequential
 // (M/bm, N/bn, K/bk) grid with the sum carried in VMEM scratch and pads ragged
-// dimensions with copies.  Here one thread block owns one output tile and runs
-// the K loop itself, the sum lives in registers, and the ragged edge is masked
-// in the loads and the stores, so no operand is ever copied to be padded.
+// dimensions with copies.  Here one thread block owns one output tile, the
+// sum lives in registers, and the ragged edge is masked in the loads and the
+// stores, so no operand is ever copied to be padded.
 //
 // What bounds it on the H100: at the shapes the MNIST ConvNet gives it
 // (M = 128 in training, 1024 in evaluation; K x N = 320 x 50 and 50 x 10,
@@ -16,21 +16,28 @@
 // 128 x 320 x 50, 16 FLOP per byte, below the card's float32 ridge of 20
 // (67 TFLOP/s over 3.35 TB/s); 1024 x 320 x 50 sits at about the ridge and
 // the 50 x 10 layer far below it.  So bytes bound it, and at these sizes the
-// launch itself costs more than either bound.  The design therefore moves
-// every byte once: each operand tile is read from device memory once per
-// output tile it feeds, the accumulator stays in registers, bias and epilogue
-// are applied in the store stage so the (M, N) output is written once and
-// never read back, and the next K tile is fetched into registers while the
-// current one is multiplied out of shared memory.  Outputs too small to give
-// every SM a 64 x 64 tile get 32 x 32 tiles, so more SMs share the few bytes,
-// with K tiles 64 deep instead of 16, so the chain of dependent round trips
-// to memory is four times shorter (5 at K = 320, 1 at K = 50).
-// Plain FMA on the SIMT cores: tensor cores (wgmma) and TMA come later.
+// launch itself and the chain of dependent memory round trips cost more
+// than either bound.  Two routes; `dense_tiling` in ops/matmul.py picks one
+// and its tiles, and passes them here:
+// - small (outputs too small to give every SM a 64 x 64 tile): 8 x 8 or
+//   16 x 16 output tiles, so the MNIST layers get 32-112 blocks, and the K
+//   dimension split across the block's warps.  Every thread issues all its
+//   copies of a K chunk (the whole K of these layers) at once with
+//   `cp.async`, so a block pays one round trip to memory instead of one per
+//   K tile; after one barrier each warp sums its K slice in registers, and
+//   the warps' partial sums are added in shared memory in warp order, so
+//   the result is the same from run to run.  Bias and epilogue are applied
+//   there and each output is written once.
+// - large: 64 x 64 tiles with 16-deep K steps, the next K tile fetched into
+//   registers while the current one is multiplied out of shared memory.
+// Plain float32 FMA on the SIMT cores on both routes (no TF32): tensor cores
+// (wgmma) and TMA for large bfloat16 products come later.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -163,6 +170,142 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Stage one operand element into shared memory as float: an asynchronous
+// copy for float32 (nothing waits for it until the chunk's barrier), a load
+// and a conversion for bfloat16; zero outside the operand.
+__device__ __forceinline__ void stage(float* dst, const float* src, bool in_range) {
+  if (in_range) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+  } else {
+    *dst = 0.0f;
+  }
+}
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src, bool in_range) {
+  *dst = in_range ? __bfloat162float(*src) : 0.0f;
+}
+
+// TN floats of a w tile row, read from shared memory in one instruction.
+template <int TN>
+struct alignas(4 * TN) Row {
+  float f[TN];
+};
+
+constexpr int kSmallMaxWarps = 8;
+constexpr int kSmallMaxSmem = 48 * 1024;  // static limit: no attribute call per launch
+
+// Floats a small-route block keeps in shared memory: the x tile (BM rows of
+// `stride`, the odd row pitch, so the warp's row reads hit distinct banks),
+// the w tile (k_chunk rows of BN), and later, in the same space, the warps'
+// partial sums.
+__host__ __device__ __forceinline__ int small_stride(int k_chunk) { return k_chunk | 1; }
+__host__ __device__ __forceinline__ long long small_floats(int bm, int bn, int k_split,
+                                                          int k_chunk) {
+  const long long tiles = 1LL * bm * small_stride(k_chunk) + 1LL * k_chunk * bn;
+  const long long partials = 1LL * k_split * bm * bn;
+  return tiles > partials ? tiles : partials;
+}
+
+// One block per BM x BN output tile, k_split warps.  Each K chunk of at most
+// k_chunk columns: every thread stages its share of both tiles, one barrier,
+// then warp w sums columns [w ks, (w + 1) ks) of the chunk (ks =
+// ceil(chunk / k_split)); lane (ty, tx) of a warp owns rows ty TM .. and
+// columns tx TN .. of the tile.  Then partial sums, in warp order.
+template <typename T, int EPI, int BM, int BN>
+__global__ void __launch_bounds__(32 * kSmallMaxWarps)
+    fused_dense_small_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                             const T* __restrict__ b, T* __restrict__ out, int M, int N, int K,
+                             int k_chunk) {
+  constexpr int TM = BM / 8;  // a warp's lanes: 8 rows x 4 columns of patches
+  constexpr int TN = BN / 4;
+  static_assert(TM * 8 == BM && TN * 4 == BN, "tile must split over 8 x 4 lanes");
+  extern __shared__ __align__(16) float smem[];
+  const int threads = blockDim.x;
+  const int k_split = threads / 32;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int ty = lane / 4;
+  const int tx = lane % 4;
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+  const int stride = small_stride(k_chunk);
+  float* xs = smem;                  // [BM][stride]
+  float* ws = smem + BM * stride;    // [k_chunk][BN], 16-byte aligned: 8 | BM
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  for (int c0 = 0; c0 < K; c0 += k_chunk) {
+    const int kc = min(k_chunk, K - c0);
+    if (c0 > 0) __syncthreads();  // every warp has read the previous chunk
+    // Neighbouring threads copy neighbouring addresses: along K for x,
+    // along N for w.
+#pragma unroll
+    for (int r = 0; r < BM; ++r) {
+      const bool row_in = row0 + r < M;
+      const T* src = x + static_cast<size_t>(row0 + r) * K + c0;
+      for (int kk = tid; kk < kc; kk += threads) stage(xs + r * stride + kk, src + kk, row_in);
+    }
+    for (int e = tid; e < kc * BN; e += threads) {
+      const int kk = e / BN;
+      const int col = col0 + e % BN;
+      stage(ws + e, w + static_cast<size_t>(c0 + kk) * N + col, col < N);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    const int ks = (kc + k_split - 1) / k_split;
+    const int k_hi = min(kc, (warp + 1) * ks);
+#pragma unroll 4
+    for (int kk = warp * ks; kk < k_hi; ++kk) {
+      float a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = xs[(ty * TM + i) * stride + kk];
+      const Row<TN> v = *reinterpret_cast<const Row<TN>*>(ws + kk * BN + tx * TN);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], v.f[j], acc[i][j]);
+    }
+  }
+
+  __syncthreads();  // the tiles' space now takes the partial sums
+  float* part = smem + warp * BM * BN;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) part[(ty * TM + i) * BN + tx * TN + j] = acc[i][j];
+  __syncthreads();
+  for (int o = tid; o < BM * BN; o += threads) {
+    const int r = row0 + o / BN;
+    const int c = col0 + o % BN;
+    if (r >= M || c >= N) continue;
+    float s = 0.0f;
+    for (int p = 0; p < k_split; ++p) s += smem[p * BM * BN + o];
+    if (b != nullptr) s += to_float(b[c]);
+    store(out + static_cast<size_t>(r) * N + c, apply_epilogue<EPI>(s));
+  }
+}
+
+template <typename T, int EPI, int BM, int BN>
+cudaError_t launch_small(const void* x, const void* w, const void* b, void* out, int M, int N,
+                         int K, int k_split, int k_chunk, cudaStream_t stream) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const int smem = static_cast<int>(4 * small_floats(BM, BN, k_split, k_chunk));
+  fused_dense_small_kernel<T, EPI, BM, BN><<<grid, 32 * k_split, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
+      static_cast<T*>(out), M, N, K, k_chunk);
+  return cudaGetLastError();
+}
+
 template <typename T, int EPI, int BM, int BN, int BK>
 cudaError_t launch(const void* x, const void* w, const void* b, void* out,
                    int M, int N, int K, cudaStream_t stream) {
@@ -173,32 +316,39 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* out,
   return cudaGetLastError();
 }
 
+// The tiles `dense_tiling` chose: route 0 small (8 x 8 or 16 x 16, 1-8
+// warps sharing K, chunks of k_chunk columns that fit the static limit),
+// route 1 large (64 x 64, K steps of 16).
+struct Tiling {
+  int route, bm, bn, k_split, k_chunk;
+};
+
 template <typename T, int EPI>
-cudaError_t pick_tile(const void* x, const void* w, const void* b, void* out,
+cudaError_t pick_tile(const Tiling& t, const void* x, const void* w, const void* b, void* out,
                       int M, int N, int K, cudaStream_t stream) {
-  int device = 0;
-  int sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const long long big_tiles =
-      (long long)((M + 63) / 64) * (long long)((N + 63) / 64);
-  if (big_tiles >= sms) return launch<T, EPI, 64, 64, 16>(x, w, b, out, M, N, K, stream);
-  return launch<T, EPI, 32, 32, 64>(x, w, b, out, M, N, K, stream);
+  if (t.route == 1 && t.bm == 64 && t.bn == 64 && t.k_split == 1 && t.k_chunk == 16)
+    return launch<T, EPI, 64, 64, 16>(x, w, b, out, M, N, K, stream);
+  if (t.route != 0 || t.k_split < 1 || t.k_split > kSmallMaxWarps || t.k_chunk < 1 ||
+      4 * small_floats(t.bm, t.bn, t.k_split, t.k_chunk) > kSmallMaxSmem)
+    return cudaErrorInvalidValue;
+  if (t.bm == 8 && t.bn == 8)
+    return launch_small<T, EPI, 8, 8>(x, w, b, out, M, N, K, t.k_split, t.k_chunk, stream);
+  if (t.bm == 16 && t.bn == 16)
+    return launch_small<T, EPI, 16, 16>(x, w, b, out, M, N, K, t.k_split, t.k_chunk, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t pick_epilogue(int epilogue, const void* x, const void* w,
+cudaError_t pick_epilogue(int epilogue, const Tiling& t, const void* x, const void* w,
                           const void* b, void* out, int M, int N, int K,
                           cudaStream_t stream) {
   switch (epilogue) {
     case kNone:
-      return pick_tile<T, kNone>(x, w, b, out, M, N, K, stream);
+      return pick_tile<T, kNone>(t, x, w, b, out, M, N, K, stream);
     case kRelu:
-      return pick_tile<T, kRelu>(x, w, b, out, M, N, K, stream);
+      return pick_tile<T, kRelu>(t, x, w, b, out, M, N, K, stream);
     case kGelu:
-      return pick_tile<T, kGelu>(x, w, b, out, M, N, K, stream);
+      return pick_tile<T, kGelu>(t, x, w, b, out, M, N, K, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -208,17 +358,20 @@ cudaError_t pick_epilogue(int epilogue, const void* x, const void* w,
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).  `b`
 // may be null (no bias).  dtype: 0 float32, 1 bfloat16; epilogue: 0 none,
-// 1 relu, 2 gelu.  All pointers are device pointers to contiguous row-major
-// arrays; the caller allocates `out`.
-extern "C" int fused_dense(const void* x, const void* w, const void* b,
-                           void* out, int M, int N, int K, int dtype,
-                           int epilogue, void* stream) {
+// 1 relu, 2 gelu; route, bm, bn, k_split, k_chunk: the tiling
+// `dense_tiling` chose (cudaErrorInvalidValue for one this source does not
+// build).  All pointers are device pointers to contiguous row-major arrays;
+// the caller allocates `out`.
+extern "C" int fused_dense(const void* x, const void* w, const void* b, void* out, int M, int N,
+                           int K, int dtype, int epilogue, int route, int bm, int bn, int k_split,
+                           int k_chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Tiling t{route, bm, bn, k_split, k_chunk};
   switch (dtype) {
     case kFloat32:
-      return pick_epilogue<float>(epilogue, x, w, b, out, M, N, K, s);
+      return pick_epilogue<float>(epilogue, t, x, w, b, out, M, N, K, s);
     case kBFloat16:
-      return pick_epilogue<__nv_bfloat16>(epilogue, x, w, b, out, M, N, K, s);
+      return pick_epilogue<__nv_bfloat16>(epilogue, t, x, w, b, out, M, N, K, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -4,12 +4,12 @@ The port of `tpu_dist.ops.flash_attention` (the Pallas kernels
 ``_flash_kernel``, ``_dkv_kernel`` and ``_dq_kernel``).  Two sources, each
 built at first use by `_build.build` and called through ``ctypes``:
 
-- ``csrc/flash_attention_sm90.cu``: the forward and dK/dV on Hopper's tensor
-  cores (``wgmma`` fed by TMA), for bfloat16 and float16 at head dims 64
-  and 128;
+- ``csrc/flash_attention_sm90.cu``: the forward, dK/dV and dQ on Hopper's
+  tensor cores (``wgmma`` fed by TMA), for bfloat16 and float16 at head
+  dims 64 and 128;
 - ``csrc/flash_attention.cu``: SIMT kernels for every dtype and head dim
   up to 256, which take float32 (whose products must stay float32, not the
-  tensor cores' TF32), the other head dims, and dQ.
+  tensor cores' TF32) and the other head dims.
 
 `flash_route` picks one by dtype and head dim.  Beside the kernels:
 
@@ -18,10 +18,11 @@ built at first use by `_build.build` and called through ``ctypes``:
   on the CPU take them; on the card they are what the kernels are held
   against.
 - `flash_fwd_sm90`, `flash_fwd_simt`, `flash_dkv_sm90`, `flash_dkv_simt`,
-  `flash_dq`: the kernels' wrappers, for CUDA tensors only, each with its
-  launch count (``flash_fwd_sm90.launches``, ...); `flash_fwd` and
-  `flash_dkv` hand a call to the wrapper `flash_route` names.  A failed
-  build or launch raises: nothing falls back to another kernel.
+  `flash_dq_sm90`, `flash_dq_simt`: the kernels' wrappers, for CUDA tensors
+  only, each with its launch count (``flash_fwd_sm90.launches``, ...);
+  `flash_fwd`, `flash_dkv` and `flash_dq` hand a call to the wrapper
+  `flash_route` names.  A failed build or launch raises: nothing falls
+  back to another kernel.
 - `flash_attention` and `flash_attention_lse` on the JAX layout
   ``(..., heads, S, d)``, with the JAX package's checks; the first is
   differentiable, its backward the two backward kernels, as the JAX custom
@@ -46,11 +47,13 @@ MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_GRID_Y = 65535  # the kernels' grid is (bh, S / tile)
 # The tensor-core kernels: their dtypes and head dims, their forward query
-# and key tile and dK/dV key tile, and their dK/dV query tile.
+# and key tile, dK/dV key tile and dQ query tile, their dK/dV query tile
+# and their dQ key tile.
 SM90_DTYPES = (torch.bfloat16, torch.float16)
 SM90_HEAD_DIMS = (64, 128)
 SM90_TILE = 128
 SM90_DKV_QUERY_TILE = 64
+SM90_DQ_KEY_TILE = 64
 # Plain versions form (chunk, S, S) float32 blocks; this many elements each.
 _REFERENCE_BLOCK = 1 << 27
 
@@ -89,22 +92,23 @@ def query_tile_range(
 
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
-    """``"sm90"``: the tensor-core kernels take bfloat16 and float16 at head
-    dims 64 and 128.  ``"simt"`` for everything else: float32 keeps float32
-    products, and other head dims keep their own tiles.  dQ is SIMT on
-    every route."""
+    """``"sm90"``: the tensor-core kernels (forward, dK/dV and dQ) take
+    bfloat16 and float16 at head dims 64 and 128.  ``"simt"`` for everything
+    else: float32 keeps float32 products, and other head dims keep their own
+    tiles."""
     return "sm90" if dtype in SM90_DTYPES and d in SM90_HEAD_DIMS else "simt"
 
 
 def sm90_tile_order(n: int, *, causal: bool, kernel: str) -> list[int]:
     """The tile each sm90 block takes, in launch order (``blockIdx.y`` = 0,
     1, ...; every batch-head at one ``blockIdx.y`` launches together).
-    ``kernel="fwd"``: query tiles, and under a causal mask the last ones,
-    which scan the most key tiles, first.  ``kernel="dkv"``: key tiles in
-    order; under a causal mask the first scan the most query tiles."""
-    if kernel not in ("fwd", "dkv"):
-        raise ValueError(f"kernel is 'fwd' or 'dkv', got {kernel!r}")
-    return list(range(n - 1, -1, -1)) if causal and kernel == "fwd" else list(range(n))
+    ``kernel="fwd"`` and ``kernel="dq"``: query tiles, and under a causal
+    mask the last ones, which scan the most key tiles, first.
+    ``kernel="dkv"``: key tiles in order; under a causal mask the first scan
+    the most query tiles."""
+    if kernel not in ("fwd", "dkv", "dq"):
+        raise ValueError(f"kernel is 'fwd', 'dkv' or 'dq', got {kernel!r}")
+    return list(range(n - 1, -1, -1)) if causal and kernel != "dkv" else list(range(n))
 
 
 # ------------------------------------------------------------ plain versions
@@ -204,7 +208,7 @@ def flash_dq_reference(q3, k3, v3, go, lse, delta, *, causal=False, window=None)
 
 _SIGNATURES = {  # pointer count of each entry point, before the shared tail
     "flash_attention": {"flash_fwd": 5, "flash_dkv": 8, "flash_dq": 7},
-    "flash_attention_sm90": {"flash_fwd_sm90": 5, "flash_dkv_sm90": 8},
+    "flash_attention_sm90": {"flash_fwd_sm90": 5, "flash_dkv_sm90": 8, "flash_dq_sm90": 7},
 }
 _ERROR_STRINGS = {"flash_attention": "flash_error_string",
                   "flash_attention_sm90": "flash_sm90_error_string"}
@@ -333,22 +337,36 @@ def flash_dkv_sm90(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
     return dk, dv
 
 
-def flash_dq(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
-    """Launch the (SIMT) dQ kernel; returns ``dq`` in q's dtype.  Counts
-    each launch in ``flash_dq.launches``."""
-    shape = _check_operands("flash_dq", [q3, k3, v3, go], [lse, delta], tile_rows(q3.shape[-1]))
+def flash_dq_simt(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
+    """Launch the SIMT dQ kernel; returns ``dq`` in q's dtype.  Counts
+    each launch in ``flash_dq_simt.launches``."""
+    shape = _check_operands("flash_dq_simt", [q3, k3, v3, go], [lse, delta],
+                            tile_rows(q3.shape[-1]))
     dq = torch.empty_like(q3)
     _launch("flash_attention", "flash_dq",
             [t.data_ptr() for t in (q3, k3, v3, go, lse, delta, dq)],
             shape, q3.dtype, causal, window, q3.device)
-    flash_dq.launches += 1
+    flash_dq_simt.launches += 1
     return dq
 
 
-for _kernel in (flash_fwd_simt, flash_fwd_sm90, flash_dkv_simt, flash_dkv_sm90, flash_dq):
-    _kernel.launches = 0
+def flash_dq_sm90(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
+    """Launch the tensor-core dQ kernel; the contract of `flash_dq_simt` on
+    its domain.  Counts each launch in ``flash_dq_sm90.launches``."""
+    shape = _check_sm90("flash_dq_sm90", [q3, k3, v3, go], [lse, delta])
+    dq = torch.empty_like(q3)
+    _launch("flash_attention_sm90", "flash_dq_sm90",
+            [t.data_ptr() for t in (q3, k3, v3, go, lse, delta, dq)],
+            shape, q3.dtype, causal, window, q3.device)
+    flash_dq_sm90.launches += 1
+    return dq
+
+
 # every wrapper that launches a kernel, each with its own count
-KERNELS = (flash_fwd_sm90, flash_fwd_simt, flash_dkv_sm90, flash_dkv_simt, flash_dq)
+KERNELS = (flash_fwd_sm90, flash_fwd_simt, flash_dkv_sm90, flash_dkv_simt, flash_dq_sm90,
+           flash_dq_simt)
+for _kernel in KERNELS:
+    _kernel.launches = 0
 
 
 def flash_fwd(q3, k3, v3, *, causal=False, window=None):
@@ -362,6 +380,13 @@ def flash_dkv(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
     sm90 = flash_route(q3.dtype, q3.shape[-1]) == "sm90"
     return (flash_dkv_sm90 if sm90 else flash_dkv_simt)(q3, k3, v3, go, lse, delta,
                                                         causal=causal, window=window)
+
+
+def flash_dq(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
+    """The dQ kernel `flash_route` names for q's dtype and head dim."""
+    sm90 = flash_route(q3.dtype, q3.shape[-1]) == "sm90"
+    return (flash_dq_sm90 if sm90 else flash_dq_simt)(q3, k3, v3, go, lse, delta,
+                                                      causal=causal, window=window)
 
 
 def _on(t: torch.Tensor, kernel, reference):

@@ -9,6 +9,9 @@ called through ``ctypes``.  Beside it:
   on the card it is what the kernel is held against.
 - `fused_dense`, the kernel's wrapper, for CUDA tensors only, with its
   launch count ``fused_dense.launches``.
+- `dense_tiling`, the one place that picks the kernel's route and tiles
+  from the shape and the card's SM count; `DenseTiling.tiles` and
+  `DenseTiling.k_slices` are the output tiles and K slices the kernel walks.
 - `matmul`, the differentiable op ``nn.Dense`` calls, whose backward mirrors
   the JAX custom VJP: plain matrix products, with the pre-activation
   recomputed by the kernel for the fused epilogues.
@@ -20,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +38,73 @@ _EPILOGUES = {
 _EPILOGUE_CODES = {"none": 0, "relu": 1, "gelu": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
+_ROUTE_CODES = {"small": 0, "large": 1}
+LARGE_TILE = (64, 64, 16)  # the large route's bm, bn and K step
+SMALL_TILES = ((8, 8), (16, 16))
+SMALL_MAX_WARPS = 8
+SMALL_MAX_SMEM = 48 * 1024  # bytes: the static limit, no attribute call per launch
+
+
+@dataclass(frozen=True)
+class DenseTiling:
+    """How the kernel covers ``(m, k) @ (k, n)``: ``route`` "large" (64 x 64
+    tiles, K steps of ``k_chunk`` = 16) or "small" (``bm`` x ``bn`` tiles,
+    ``k_split`` warps sharing each K chunk of up to ``k_chunk`` columns)."""
+
+    route: str
+    bm: int
+    bn: int
+    k_split: int
+    k_chunk: int
+
+    def tiles(self, m: int, n: int) -> list[tuple[slice, slice]]:
+        """The (rows, columns) each block owns, clipped to the output."""
+        return [(slice(r, min(r + self.bm, m)), slice(c, min(c + self.bn, n)))
+                for r in range(0, m, self.bm) for c in range(0, n, self.bn)]
+
+    def k_slices(self, k: int) -> list[range]:
+        """The K columns one output element sums, as the small kernel's
+        warps take them: for each chunk, warp w's slice ``[w ks, (w + 1)
+        ks)``, ``ks = ceil(chunk / k_split)``; the large route's K steps."""
+        out = []
+        for c0 in range(0, k, self.k_chunk):
+            kc = min(self.k_chunk, k - c0)
+            ks = -(-kc // self.k_split)
+            out += [range(c0 + w * ks, c0 + min(kc, (w + 1) * ks))
+                    for w in range(self.k_split)]
+        return out
+
+
+def small_smem_bytes(bm: int, bn: int, k_split: int, k_chunk: int) -> int:
+    """Shared memory of a small-route block (``small_floats`` in the
+    source): the x tile at an odd row pitch and the w tile, or the warps'
+    partial sums, which reuse that space."""
+    return 4 * max(bm * (k_chunk | 1) + k_chunk * bn, k_split * bm * bn)
+
+
+@functools.cache
+def dense_tiling(m: int, n: int, k: int, sms: int) -> DenseTiling:
+    """The kernel's route and tiles for an (m, k) @ (k, n) product on a card
+    with ``sms`` SMs.  An output that gives every SM a 64 x 64 tile takes
+    the large route.  A smaller one takes 8 x 8 tiles while they fit four to
+    an SM, else 16 x 16, so the few output elements still spread over the
+    card, and splits K over up to 8 warps; K is cut into as few equal
+    chunks as the static shared memory allows (one for the MNIST layers)."""
+    bm, bn, bk = LARGE_TILE
+    if -(-m // bm) * -(-n // bn) >= sms:
+        return DenseTiling("large", bm, bn, 1, bk)
+    small, medium = SMALL_TILES
+    bm, bn = small if -(-m // small[0]) * -(-n // small[1]) <= 4 * sms else medium
+    k_split = max(1, min(SMALL_MAX_WARPS, k))
+    deepest = (SMALL_MAX_SMEM // 4 - bm) // (bm + bn)  # whose tiles fit; the sums always do
+    chunks = max(1, -(-k // deepest))
+    k_chunk = max(1, -(-k // chunks))
+    return DenseTiling("small", bm, bn, k_split, k_chunk)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def matmul_reference(
@@ -49,7 +120,7 @@ def matmul_reference(
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.build("matmul").path))
-    lib.fused_dense.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    lib.fused_dense.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
     ]
     lib.fused_dense.restype = ctypes.c_int
@@ -61,8 +132,9 @@ def _library() -> ctypes.CDLL:
 def fused_dense(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, epilogue: str = "none"
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream; raises on anything it
-    does not take.  Counts each launch in ``fused_dense.launches``."""
+    """Launch the CUDA kernel on the current stream, on the route and tiles
+    `dense_tiling` picks; raises on anything it does not take.  Counts each
+    launch in ``fused_dense.launches``."""
     if epilogue not in _EPILOGUE_CODES:
         raise ValueError(f"unknown epilogue {epilogue!r}; one of {list(_EPILOGUES)}")
     operands = [x, w] + ([b] if b is not None else [])
@@ -88,11 +160,13 @@ def fused_dense(
     if m == 0 or n == 0:
         return out
     lib = _library()
+    t = dense_tiling(m, n, k, _sm_count(x.device.index))
     with torch.cuda.device(x.device):
         code = lib.fused_dense(
             x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
-            out.data_ptr(), m, n, k, _DTYPE_CODES[x.dtype],
-            _EPILOGUE_CODES[epilogue], torch.cuda.current_stream().cuda_stream,
+            out.data_ptr(), m, n, k, _DTYPE_CODES[x.dtype], _EPILOGUE_CODES[epilogue],
+            _ROUTE_CODES[t.route], t.bm, t.bn, t.k_split, t.k_chunk,
+            torch.cuda.current_stream().cuda_stream,
         )
     if code != 0:
         reason = lib.fused_dense_error_string(code).decode()
