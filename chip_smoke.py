@@ -39,9 +39,13 @@ the exit code is nonzero:
           16, bfloat16 compute) with TPU_DIST_FLASH=1 for two epochs, its
           flash launch counts (12 per step of the tensor-core forward, dK/dV
           and dQ, none of the SIMT kernels), tokens/s and
-          losses; the kernels' share of a profiled step; then one step of a
-          small float32 LM on the card (the SIMT route: its launch counts)
-          and on the CPU, losses and gradients compared.
+          losses; the kernels' share of a profiled step; then the same LM in
+          float32 (``compute_dtype=None``, the trainer's default; matmuls
+          without TF32) for two epochs of 4 steps, which takes the SIMT
+          forward, dK/dV and dQ (12 launches each per step, none of the
+          tensor-core ones), its tokens/s and each flash kernel's device ms
+          per step from a profile; then one step of a small float32 LM on
+          the card and on the CPU, losses and gradients compared.
 [ring]    the ring all-reduce kernel under ``comm.spmd`` at worlds 2, 3 and
           4, every rank a process on this one card (the Gloo control group
           carries the handle exchange; the kernel moves the data): each
@@ -58,6 +62,12 @@ the exit code is nonzero:
 Then one JSON line per kernel, the card's name and power limit, and the
 result line.  Without a CUDA device it exits nonzero before printing any
 result.
+
+    python3 chip_smoke.py --lm-f32
+
+runs only [env] and the float32 [lm] sub-phase (the kernels built at first
+use), to compare the SIMT kernels of two trees end to end, and prints no
+result line.
 """
 
 from __future__ import annotations
@@ -307,6 +317,7 @@ FLASH_REPLACES = {  # wrapper: (TPU kernel, CUDA source)
 # one attention call of the [lm] path: (batch, heads, S, head_dim)
 LM_ATTENTION = (16, 12, 1024, 64)
 LM_ROUTE = ("flash_fwd_sm90", "flash_dkv_sm90", "flash_dq_sm90")  # the kernels it launches
+LM_F32_ROUTE = ("flash_fwd_simt", "flash_dkv_simt", "flash_dq_simt")  # float32 [lm]
 
 
 def visible_fraction(S: int, causal: bool, window, flops, fa) -> float:
@@ -475,7 +486,7 @@ def backward_pair(rows, label, route, library_step_ms, work, dtype) -> dict:
     }
 
 
-def profile_steps(trainer, tokens, steps: int, card_name: str) -> dict:
+def profile_steps(trainer, tokens, steps: int, card_name: str, compute: str) -> dict:
     """Device time by kernel over a few training steps, from
     ``torch.profiler``, summed by kind of kernel (by name); the flash
     kernels' share of it and each flash kernel's time, and the share of the
@@ -512,7 +523,7 @@ def profile_steps(trainer, tokens, steps: int, card_name: str) -> dict:
             flash[name[0]] = flash.get(name[0], 0.0) + e.self_device_time_total / steps / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     out = {
-        "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+        "compute": compute, "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
         "device_ms_per_step": device_us / steps / 1e3,
         "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
         "device_ms_per_step_by_kind": by_kind,
@@ -538,22 +549,30 @@ def lm_step_flops(flops, batch, seq, dim, depth, heads, vocab) -> float:
     return flops.train_step_flops_estimate(depth * block + flops.linear_flops(tokens, dim, vocab))
 
 
-def lm_path(device, fa, card_name) -> dict:
+def lm_fit(device, fa, flops, card_name, *, compute_dtype, steps_per_epoch: int,
+           route: tuple) -> dict:
+    """``LMTrainer.fit`` of the GPT-2-small-class TransformerLM for two
+    epochs under TPU_DIST_FLASH=1 (the first includes the first steps'
+    warm-up; the second is timed), with every flash launch count at 0
+    before it and read after it: 12 a step of each kernel of ``route``,
+    none of the others.  Then a profile of 3 steps."""
     from tpu_dist_torch import models
-    from tpu_dist_torch.train import LMTrainConfig, LMTrainer, flops
+    from tpu_dist_torch.train import LMTrainConfig, LMTrainer
 
-    os.environ["TPU_DIST_FLASH"] = "1"
-    depth, steps_per_epoch, epochs, batch, seq = 12, 8, 2, 16, 1024
+    depth, epochs, batch, seq = 12, 2, 16, 1024
     lm = models.TransformerLM(vocab=32768, dim=768, depth=depth, heads=12, max_seq=seq,
                               pos_embedding="rope", generator=torch.Generator().manual_seed(0))
     n_params = sum(p.numel() for p in lm.parameters())
-    trainer = LMTrainer(lm, LMTrainConfig(global_batch=batch, compute_dtype="bfloat16",
+    trainer = LMTrainer(lm, LMTrainConfig(global_batch=batch, compute_dtype=compute_dtype,
                                           log=lambda line: print("[lm]", line, flush=True)),
                         device=device)
     windows = models.synthetic_tokens(batch * steps_per_epoch, seq, 32768)
+    compute = compute_dtype or "float32 (compute_dtype=None)"
     print(f"[lm] LMTrainer.fit: TransformerLM vocab 32768, dim 768, depth {depth}, heads 12, "
-          f"rope, {n_params} params; seq {seq}, global batch {batch}, bfloat16 compute, "
-          f"TPU_DIST_FLASH=1; {epochs} epochs of {steps_per_epoch} steps", flush=True)
+          f"rope, {n_params} params; seq {seq}, global batch {batch}, {compute} compute, "
+          f"TPU_DIST_FLASH=1, torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}; {epochs} epochs of {steps_per_epoch} "
+          "steps", flush=True)
     for kernel in fa.KERNELS:
         kernel.launches = 0
     torch.cuda.reset_peak_memory_stats(device)
@@ -564,26 +583,41 @@ def lm_path(device, fa, card_name) -> dict:
     steps = epochs * steps_per_epoch
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     step_flops = lm_step_flops(flops, batch, seq, 768, depth, 12, 32768)
-    peak = flops.peak_flops(PEAK_CARD, torch.bfloat16)
+    dtype = getattr(torch, compute_dtype or "float32")
+    peak = flops.peak_flops(PEAK_CARD, dtype)
     for stats in history:
         rate = step_flops * steps_per_epoch / stats.seconds
-        print(f"[lm] epoch {stats.epoch}: mean loss {stats.mean_loss}, "
+        print(f"[lm] {compute} epoch {stats.epoch}: mean loss {stats.mean_loss}, "
               f"{stats.tokens_per_sec} tokens/s, {stats.seconds} s, {rate / 1e12} model "
-              f"TFLOP/s ({step_flops / 1e12} TFLOP per step), {rate / peak} of the bf16 "
-              f"peak, on {card_name}", flush=True)
-    # bfloat16 at head dim 64: the tensor-core forward, dK/dV and dQ
-    expected = {name: depth * steps if name in LM_ROUTE else 0 for name in launches}
-    print(f"[lm] fit wall time {wall} s; peak device memory {peak_gb} GB; flash launches "
-          f"{launches} (expected {expected}: {depth} x {steps} steps)", flush=True)
+              f"TFLOP/s ({step_flops / 1e12} TFLOP per step), {rate / peak} of the "
+              f"{str(dtype)[6:]} peak, on {card_name}", flush=True)
+    expected = {name: depth * steps if name in route else 0 for name in launches}
+    print(f"[lm] {compute} fit wall time {wall} s; peak device memory {peak_gb} GB; flash "
+          f"launches {launches} (expected {expected}: {depth} x {steps} steps)", flush=True)
     check(launches == expected, f"flash launches {launches}, not {expected}")
     check(all(math.isfinite(s.mean_loss) for s in history), "non-finite epoch loss")
+    tokens = trainer._to_device(windows[:batch].numpy())
+    profile = profile_steps(trainer, tokens, 3, card_name, compute)
+    del trainer, lm
+    torch.cuda.empty_cache()
+    return {"launches": launches, "history": history, "profile": profile}
+
+
+def lm_path(device, fa, card_name) -> dict:
+    from tpu_dist_torch import models
+    from tpu_dist_torch.train import LMTrainConfig, LMTrainer, flops
+
+    os.environ["TPU_DIST_FLASH"] = "1"
+    # bfloat16 at head dim 64: the tensor-core forward, dK/dV and dQ
+    bf16 = lm_fit(device, fa, flops, card_name, compute_dtype="bfloat16", steps_per_epoch=8,
+                  route=LM_ROUTE)
+    launches, history, profile = bf16["launches"], bf16["history"], bf16["profile"]
     check(history[1].mean_loss < history[0].mean_loss,
           f"epoch 1 mean loss {history[1].mean_loss} not below epoch 0's "
           f"{history[0].mean_loss}")
-    tokens = trainer._to_device(windows[:batch].numpy())
-    profile = profile_steps(trainer, tokens, 3, card_name)
-    del trainer, lm
-    torch.cuda.empty_cache()
+    # float32, the trainer's default: the SIMT forward, dK/dV and dQ
+    f32 = lm_fit(device, fa, flops, card_name, compute_dtype=None, steps_per_epoch=4,
+                 route=LM_F32_ROUTE)
 
     # One step from identical state, card against CPU, at a small size.
     small = dict(vocab=512, dim=128, depth=2, heads=2, max_seq=256, pos_embedding="rope")
@@ -594,11 +628,11 @@ def lm_path(device, fa, card_name) -> dict:
     for kernel in fa.KERNELS:
         kernel.launches = 0
     loss_card = pair[0].loss_and_grads(tokens.to(device)).item()
-    f32_launches = {kernel.__name__: kernel.launches for kernel in fa.KERNELS}
+    small_launches = {kernel.__name__: kernel.launches for kernel in fa.KERNELS}
     # float32: the SIMT route, one call of each kernel per block
-    f32_expected = {name: 0 if name.endswith("_sm90") else 2 for name in f32_launches}
-    check(f32_launches == f32_expected,
-          f"small-LM flash launches {f32_launches}, not {f32_expected}")
+    small_expected = {name: 0 if name.endswith("_sm90") else 2 for name in small_launches}
+    check(small_launches == small_expected,
+          f"small-LM flash launches {small_launches}, not {small_expected}")
     loss_cpu = pair[1].loss_and_grads(tokens).item()
     grad_diff = 0.0
     for name, p in pair[0].params.items():
@@ -610,10 +644,10 @@ def lm_path(device, fa, card_name) -> dict:
     print(f"[lm] one step of a small LM (vocab 512, dim 128, depth 2, heads 2, seq 256, "
           f"batch 2, float32, TPU_DIST_FLASH=1): loss card {loss_card} cpu {loss_cpu} "
           f"|diff| {abs(loss_card - loss_cpu)}; gradients max |diff| {grad_diff}; flash "
-          f"launches on the card {f32_launches}", flush=True)
+          f"launches on the card {small_launches}", flush=True)
     check(abs(loss_card - loss_cpu) <= 1e-5, "card and CPU losses differ by more than 1e-5")
-    return {"launches": launches, "f32_launches": f32_launches, "history": history,
-            "profile": profile}
+    return {"launches": launches, "small_launches": small_launches, "history": history,
+            "profile": profile, "f32": f32}
 
 
 RING_WORLDS = (2, 3, 4)
@@ -718,12 +752,20 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print("[env] TF32 off for matmul and cuDNN (float32 computed in float32)", flush=True)
 
+    if sys.argv[1:] not in ([], ["--lm-f32"]):
+        sys.exit("usage: python3 chip_smoke.py [--lm-f32]")
+    if sys.argv[1:] == ["--lm-f32"]:
+        os.environ["TPU_DIST_FLASH"] = "1"
+        lm_fit(device, fa, flops, card_and_power_limit(), compute_dtype=None,
+               steps_per_epoch=4, route=LM_F32_ROUTE)
+        return
+
     build_all(_build)
 
     rows = matmul_cases(device, ops, F)
     launches = main_path(device, ops, card_name)["launches"]
     flash_rows = flash_cases(device, fa, F, flops, checks)
-    lm = lm_path(device, fa, card_name)
+    lm = lm_path(device, fa, card_and_power_limit())  # tokens/s beside the card's power limit
     ring = ring_path(checks, flops, metrics, card_name)
 
     step = rows[:2]  # the two launches of one training step
@@ -745,7 +787,8 @@ def main() -> None:
         "tiling": [r["tiling"] for r in step],
     }
     kernels = [kernel]
-    pair = next(r for r in flash_rows if r["case"] == "lm" and "pair" in r["kernel"])
+    pairs = {case: next(r for r in flash_rows if r["case"] == case and "pair" in r["kernel"])
+             for case in ("lm", "f32")}
     for name, (replaces, source) in FLASH_REPLACES.items():
         on_lm = name in LM_ROUTE  # else the SIMT route: float32, timed at the f32 case
         row = next(r for r in flash_rows
@@ -753,15 +796,16 @@ def main() -> None:
         entry = {
             "name": name, "route": "cuda", "source": f"tpu_dist_torch/ops/csrc/{source}",
             "replaces": replaces,
-            "launches": lm["launches"][name] if on_lm else lm["f32_launches"][name],
+            "launches": lm["launches"][name] if on_lm else lm["f32"]["launches"][name],
             **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms", "tflops")},
             "work": "one attention call of the [lm] path: q, k, v (16, 12, 1024, 64) "
                     "bfloat16, causal; 12 calls per training step" if on_lm else
-                    "q, k, v (16, 12, 1024, 64) float32, causal; launches: the [lm] small "
-                    "float32 LM step (2 blocks), which takes the SIMT route",
+                    "one attention call of the float32 [lm] run: q, k, v (16, 12, 1024, 64) "
+                    "float32, causal; 12 calls per training step",
         }
-        if name in ("flash_dkv_sm90", "flash_dq_sm90"):
+        if "_fwd_" not in name:  # SDPA's backward beside the route's dK/dV + dQ
+            pair = pairs["lm" if on_lm else "f32"]
             entry["backward_pair"] = {
                 key: pair[key] for key in ("kernels", "ms", "library_ms", "library")}
         if on_lm:  # the same [lm] inputs, SIMT

@@ -56,3 +56,19 @@ def test_spmd_refuses_a_card_it_does_not_have(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         comm.spmd(workers.probe, 1.0, world=2)
+
+
+@pytest.mark.parametrize("op", [comm.ReduceOp.SUM, comm.ReduceOp.AVG], ids=["sum", "avg"])
+def test_all_reduce_without_a_process_group_is_a_world_of_one(op):
+    """Without a process group `all_reduce` runs a world of one, as `rank`
+    and `world_size` do, and as the JAX package's all_reduce at world 1:
+    the input comes back unchanged, SUM and AVG alike."""
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    x = torch.arange(12, dtype=torch.float32).reshape(3, 4) - 5.5
+    want = x.clone()
+    out = comm.all_reduce(x, op)
+    assert out is x
+    assert torch.equal(out, want)
+    assert (comm.rank(), comm.world_size()) == (0, 1)

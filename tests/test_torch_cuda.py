@@ -11,6 +11,7 @@ machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
 
+import functools
 import importlib
 
 import pytest
@@ -28,7 +29,8 @@ pytestmark = pytest.mark.cuda
 SHAPES = [(128, 320, 50), (128, 50, 10), (1024, 320, 50), (1024, 50, 10),
           (100, 60, 40), (300, 270, 520)]
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
-       torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+       torch.bfloat16: dict(rtol=1e-2, atol=1e-2),  # one bf16 rounding of the output
+       torch.float16: dict(rtol=2e-3, atol=2e-3)}  # one f16 rounding of the output
 
 
 @pytest.fixture
@@ -48,7 +50,7 @@ def _inputs(shape, dtype, device, bias=True):
     return x, w, b
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("epilogue", ["none", "relu", "gelu"])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_kernel_matches_plain_version(card, shape, epilogue, dtype):
@@ -105,13 +107,41 @@ def test_grads_on_card_match_plain_version(card, epilogue):
 
 
 def test_wrapper_refuses_bad_input(card):
+    """Mixed dtypes, non-contiguous operands and a wrong bias raise; float16,
+    which the JAX kernel takes, runs and matches the plain version."""
     x, w, b = _inputs((16, 32, 8), torch.float32, card)
     with pytest.raises(ValueError, match="contiguous"):
         fused_dense(x.T.contiguous().T, w, b)
+    got = fused_dense(x.half(), w.half(), b.half())
+    assert got.dtype == torch.float16
+    torch.testing.assert_close(got, matmul_reference(x.half(), w.half(), b.half()),
+                               **TOL[torch.float16])
     with pytest.raises(TypeError):
-        fused_dense(x.half(), w.half(), b.half())
+        fused_dense(x.half(), w, b)
     with pytest.raises(ValueError, match="bias"):
         fused_dense(x, w, b[:4].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=lambda t: str(t)[6:])
+def test_kernel_past_2_31_elements(card, dtype):
+    """x of more than 2^31 elements ((2^21 + 64) x 1024, 4.3 GB in 16 bits):
+    64-bit offsets and the one-dimensional grid (32,769 tiles) of the large
+    route; the rows past element 2^31 are held to the plain version."""
+    m, k, n = 2**21 + 64, 1024, 16
+    g = torch.Generator(card).manual_seed(2)
+    x = torch.empty(m, k, device=card, dtype=dtype)
+    for r in range(0, m, 1 << 18):  # without a float32 copy of all of x
+        x[r:r + (1 << 18)] = torch.randn(min(1 << 18, m - r), k, generator=g, device=card)
+    w = torch.randn(k, n, generator=g, device=card).to(dtype)
+    b = torch.randn(n, generator=g, device=card).to(dtype)
+    assert x.numel() > 2**31
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert dense_tiling(m, n, k, sms).route == "large"
+    got = fused_dense(x, w, b, "gelu")
+    torch.cuda.synchronize()
+    tail = slice(2**31 // k - 64, m)  # from before element 2^31 to the end
+    torch.testing.assert_close(got[tail], matmul_reference(x[tail], w, b, "gelu"),
+                               **TOL[dtype])
 
 
 # ---------------------------------------------------------------- flash
@@ -187,6 +217,78 @@ def test_flash_dq_sm90_matches_plain_version(card, mask, shape, d, dtype):
     assert fa.flash_dq_sm90.launches == before + 1 and got.dtype == dtype
     want = fa.flash_dq_reference(q, k, v, go, lse, delta, causal=causal, window=window)
     torch.testing.assert_close(got, want, **checks.FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("d", [5, 16, 32, 64, 100, 128, 256], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("shape", [(3, 128), (2, 129), (1, 1000)],
+                         ids=lambda s: f"bh{s[0]}-S{s[1]}")
+@pytest.mark.parametrize("mask", MASKS, ids=lambda m: f"causal{int(m[0])}-w{m[1]}")
+def test_flash_simt_fwd_and_dkv_match_plain_versions(card, mask, shape, d, dtype):
+    """The SIMT forward and dK/dV alone, at every template width (16, 32, 64,
+    128, 256; d = 5 and 100 pad to 16 and 128 and take the element-wise
+    copies, d * itemsize not being a multiple of 16 bytes in every dtype) and
+    every input type, tensor-core domain included: unmasked, causal and
+    windowed, ragged S (129 and 1000 end inside every tile), against the
+    plain versions on the plain forward's lse and D."""
+    causal, window = mask
+    kw = dict(causal=causal, window=window)
+    q, k, v, go = checks.flash_inputs(*shape, d, dtype, card, seed=13)
+    want_out, want_lse = fa.flash_fwd_reference(q, k, v, **kw)
+    delta = (go.float() * want_out.float()).sum(-1)
+    before = (fa.flash_fwd_simt.launches, fa.flash_dkv_simt.launches)
+    out, lse = fa.flash_fwd_simt(q, k, v, **kw)
+    dk, dv = fa.flash_dkv_simt(q, k, v, go, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd_simt.launches, fa.flash_dkv_simt.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    assert out.dtype == dk.dtype == dv.dtype == dtype and lse.dtype == torch.float32
+    tol = checks.FLASH_TOL[dtype]
+    torch.testing.assert_close(out, want_out, **tol)
+    torch.testing.assert_close(lse, want_lse, **checks.FLASH_TOL[torch.float32])
+    want_dk, want_dv = fa.flash_dkv_reference(q, k, v, go, want_lse, delta, **kw)
+    torch.testing.assert_close(dk, want_dk, **tol)
+    torch.testing.assert_close(dv, want_dv, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("d", [16, 64, 128, 256], ids=lambda d: f"d{d}")
+def test_flash_simt_is_the_same_from_run_to_run(card, d, dtype):
+    """No atomics and no order that depends on timing: each block owns its
+    output rows and sums in a fixed order, so runs of the SIMT forward and
+    dK/dV on the same inputs agree bit for bit."""
+    q, k, v, go = checks.flash_inputs(24, 1000, d, dtype, card, seed=7)
+    out, lse = fa.flash_fwd_simt(q, k, v, causal=True)
+    delta = (go.float() * out.float()).sum(-1)
+    runs = [fa.flash_dkv_simt(q, k, v, go, lse, delta, causal=True) for _ in range(3)]
+    again = [fa.flash_fwd_simt(q, k, v, causal=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    for dk, dv in runs[1:]:
+        assert torch.equal(dk, runs[0][0]) and torch.equal(dv, runs[0][1])
+    for o, m in again:
+        assert torch.equal(o, out) and torch.equal(m, lse)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256], ids=lambda d: f"d{d}")
+def test_simt_entry_points_take_only_their_tiling(card, d, kernel):
+    """The source builds one tiling of the SIMT forward and dK/dV at each
+    width: its entry point takes the one `simt_tiling` names and refuses it
+    with any field changed, so the two cannot drift apart unseen."""
+    q, k, v, go = checks.flash_inputs(2, 256, d, torch.float32, card)
+    lse = torch.zeros(2, 256, device=card)
+    out, out2 = torch.empty_like(q), torch.empty_like(q)
+    operands = (q, k, v, out, lse) if kernel == "fwd" else (q, k, v, go, lse, lse, out, out2)
+    launch = functools.partial(fa._launch, "flash_attention", f"flash_{kernel}",
+                               [t.data_ptr() for t in operands], tuple(q.shape), q.dtype,
+                               True, None, q.device)
+    tiles = fa.simt_tiling(kernel, d)
+    launch(tiles)
+    torch.cuda.synchronize()
+    for field in tiles._fields:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            launch(tiles._replace(**{field: 2 * getattr(tiles, field)}))
 
 
 def _dense_attention(q, k, v, causal, window):

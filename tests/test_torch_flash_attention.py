@@ -240,3 +240,53 @@ def test_dispatch_takes_the_wrapper_the_route_names(monkeypatch, dtype, d):
     assert called == [f"flash_fwd_{route}", f"flash_dkv_{route}", f"flash_dq_{route}"]
     sm90 = dtype in (torch.bfloat16, torch.float16) and d in (64, 128)
     assert (called[-1] == "flash_dq_sm90") == sm90
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("d", [1, 8, 16, 17, 32, 64, 100, 128, 200, 256])
+def test_simt_tiling_is_one_the_kernel_builds(kernel, d):
+    """Every head dim takes the tiling of its template width, the narrowest
+    of 16, 32, 64, 128 and 256 that holds it: the one tiling the source
+    builds there (the card test `test_simt_entry_points_take_only_their_tiling`
+    holds the C entry points to it).  Its tiles are whole 16-row multiples,
+    so the tile ranges and the grid are those of the kernel."""
+    t = fa.simt_tiling(kernel, d)
+    width = fa.head_width(d)
+    assert d <= width and (width // 2 < d or width == 16) and width in fa.SIMT_WIDTHS
+    assert t == fa.simt_tiling(kernel, width)
+    assert t.rows % 16 == 0 and t.cols % 16 == 0 and t.stages in (1, 2)
+
+
+def test_simt_tiling_refuses_another_kernel_or_head_dim():
+    with pytest.raises(ValueError, match="kernel"):
+        fa.simt_tiling("dq", 64)
+    for d in (0, 257):
+        with pytest.raises(ValueError, match="head dims"):
+            fa.simt_tiling("fwd", d)
+
+
+@pytest.mark.parametrize("width", fa.SIMT_WIDTHS)
+@pytest.mark.parametrize("S", [64, 100, 129, 300, 1024])
+def test_simt_tile_ranges_cover_every_visible_pair_once(S, width):
+    """The forward's query tiles with their key-tile ranges, and dK/dV's key
+    tiles with their query-tile ranges, at each width's tiles: every visible
+    (query, key) pair lies in exactly one scanned tile pair, under every
+    mask kind."""
+    fwd = fa.simt_tiling("fwd", width)
+    dkv = fa.simt_tiling("dkv", width)
+    for causal, window in itertools.product([False, True], [None, 1, 17, 64, 1000]):
+        visible = _brute_force_visible(S, causal, window).numpy()
+        seen = np.zeros((S, S), dtype=np.int64)
+        bq, bk = fwd.rows, fwd.cols
+        for i in range(-(-S // bq)):
+            lo, hi = fa.key_tile_range(i, S, bq, bk, causal=causal, window=window)
+            for j in range(lo, hi):
+                seen[i * bq:(i + 1) * bq, j * bk:(j + 1) * bk] += 1
+        assert (seen[visible] == 1).all(), ("fwd", causal, window)
+        seen[:] = 0
+        bq, bk = dkv.cols, dkv.rows
+        for j in range(-(-S // bk)):
+            lo, hi = fa.query_tile_range(j, S, bq, bk, causal=causal, window=window)
+            for i in range(lo, hi):
+                seen[i * bq:(i + 1) * bq, j * bk:(j + 1) * bk] += 1
+        assert (seen[visible] == 1).all(), ("dkv", causal, window)

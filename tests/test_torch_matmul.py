@@ -77,6 +77,44 @@ def test_bf16_matches_jax(shape, epilogue):
     )
 
 
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+def test_float16_dense_under_the_flag_matches_jax(monkeypatch, epilogue):
+    """A float16 `nn.Dense` under TPU_DIST_PALLAS_DENSE=1 goes through the
+    op (on the CPU its plain version) and matches the JAX kernel on the same
+    float16 operands in interpret mode; both accumulate in float32 and
+    round once to float16, so they may differ by one float16 rounding of
+    the output (2^-10 relative): rtol 2e-3, atol 2e-3.  The epilogue goes
+    through `matmul` itself, as Dense has none."""
+    from tpu_dist_torch import nn as port_nn
+    from tpu_dist_torch.nn import layers
+
+    monkeypatch.setenv("TPU_DIST_PALLAS_DENSE", "1")
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].dtype)
+        return matmul(*args, **kwargs)
+
+    monkeypatch.setattr(layers, "matmul", spy)
+    x, w, b = _inputs(64, 96, 48, seed=6)
+    f16 = jnp.float16
+    want = jax_ops.matmul(_jax(x, f16), _jax(w, f16), _jax(b, f16), epilogue=epilogue,
+                          interpret=True)
+    if epilogue == "none":
+        dense = port_nn.Dense(96, 48)
+        with torch.no_grad():
+            dense.w.copy_(_torch(w))
+            dense.b.copy_(_torch(b))
+        got = dense.half()(_torch(x, torch.float16))
+        assert calls == [torch.float16]
+    else:
+        got = matmul(_torch(x, torch.float16), _torch(w, torch.float16),
+                     _torch(b, torch.float16), epilogue=epilogue)
+    assert got.dtype == torch.float16 and want.dtype == f16
+    np.testing.assert_allclose(got.float().detach().numpy(),
+                               np.asarray(want.astype(jnp.float32)), rtol=2e-3, atol=2e-3)
+
+
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("epilogue", EPILOGUES)
 @pytest.mark.parametrize("shape", [(32, 64, 16), (100, 60, 40)])

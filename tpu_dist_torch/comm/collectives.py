@@ -25,7 +25,11 @@ class ReduceOp(enum.Enum):
 
 def all_reduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
     """Reduce ``tensor`` in place across every rank and return it.  AVG is
-    a SUM divided by the world size on every backend (Gloo has no AVG)."""
+    a SUM divided by the world size on every backend (Gloo has no AVG).
+    Without a process group the world is one rank: ``tensor`` is returned
+    as it is, for SUM and AVG alike."""
+    if not dist.is_initialized():
+        return tensor
     dist.all_reduce(tensor, op=dist.ReduceOp.SUM)
     if op is ReduceOp.AVG:
         tensor.div_(dist.get_world_size())

@@ -3,8 +3,10 @@
 // Replaces the Pallas TPU kernel `_matmul_kernel` (tpu_dist/ops/matmul.py:38),
 // which the JAX package runs behind `nn.Dense` under TPU_DIST_PALLAS_DENSE=1.
 // Same function: x (M, K), w (K, N), optional b (N,), epilogue none, relu or
-// tanh-gelu, float32 or bfloat16 inputs, float32 accumulation, output in the
-// input type.  Not the same blocking: the TPU kernel walks a sequential
+// tanh-gelu, float32, bfloat16 or float16 inputs, float32 accumulation, output
+// in the input type, any shape whose M, N and K each fit an int: offsets are
+// 64-bit and the grid is one-dimensional (up to 2^31 - 1 tiles), so an
+// operand may pass 2^31 elements.  Not the same blocking: the TPU kernel walks a sequential
 // (M/bm, N/bn, K/bk) grid with the sum carried in VMEM scratch and pads ragged
 // dimensions with copies.  Here one thread block owns one output tile, the
 // sum lives in registers, and the ragged edge is masked in the loads and the
@@ -34,6 +36,7 @@
 // (wgmma) and TMA for large bfloat16 products come later.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -44,7 +47,7 @@ namespace {
 constexpr int kThreads = 256;  // 16 x 16 threads, each owns a TM x TN patch
 
 enum Epilogue { kNone = 0, kRelu = 1, kGelu = 2 };
-enum DType { kFloat32 = 0, kBFloat16 = 1 };
+enum DType { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -53,6 +56,16 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+__device__ __forceinline__ void store(__half* p, float v) { *p = __float2half(v); }
+
+// The output tile of this block: blocks walk a one-dimensional grid, column
+// tiles fastest, as a (N / BN, M / BM) grid would.
+__device__ __forceinline__ void tile_origin(int BM, int BN, int N, int* row0, int* col0) {
+  const long long n_tiles = (N + BN - 1LL) / BN;
+  *row0 = static_cast<int>(blockIdx.x / n_tiles) * BM;
+  *col0 = static_cast<int>(blockIdx.x % n_tiles) * BN;
 }
 
 template <int EPI>
@@ -88,8 +101,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
+  int row0, col0;
+  tile_origin(BM, BN, N, &row0, &col0);
 
   float x_next[A_PER];
   float w_next[B_PER];
@@ -176,7 +189,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // Stage one operand element into shared memory as float: an asynchronous
 // copy for float32 (nothing waits for it until the chunk's barrier), a load
-// and a conversion for bfloat16; zero outside the operand.
+// and a conversion for bfloat16 and float16; zero outside the operand.
 __device__ __forceinline__ void stage(float* dst, const float* src, bool in_range) {
   if (in_range) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
@@ -185,8 +198,9 @@ __device__ __forceinline__ void stage(float* dst, const float* src, bool in_rang
     *dst = 0.0f;
   }
 }
-__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src, bool in_range) {
-  *dst = in_range ? __bfloat162float(*src) : 0.0f;
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, const T* src, bool in_range) {
+  *dst = in_range ? to_float(*src) : 0.0f;
 }
 
 // TN floats of a w tile row, read from shared memory in one instruction.
@@ -231,8 +245,8 @@ __global__ void __launch_bounds__(32 * kSmallMaxWarps)
   const int lane = tid % 32;
   const int ty = lane / 4;
   const int tx = lane % 4;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
+  int row0, col0;
+  tile_origin(BM, BN, N, &row0, &col0);
   const int stride = small_stride(k_chunk);
   float* xs = smem;                  // [BM][stride]
   float* ws = smem + BM * stride;    // [k_chunk][BN], 16-byte aligned: 8 | BM
@@ -251,7 +265,7 @@ __global__ void __launch_bounds__(32 * kSmallMaxWarps)
 #pragma unroll
     for (int r = 0; r < BM; ++r) {
       const bool row_in = row0 + r < M;
-      const T* src = x + static_cast<size_t>(row0 + r) * K + c0;
+      const T* src = x + (static_cast<size_t>(row0) + r) * K + c0;
       for (int kk = tid; kk < kc; kk += threads) stage(xs + r * stride + kk, src + kk, row_in);
     }
     for (int e = tid; e < kc * BN; e += threads) {
@@ -295,10 +309,17 @@ __global__ void __launch_bounds__(32 * kSmallMaxWarps)
   }
 }
 
+// Output tiles, one block each, or 0 when they pass the grid's limit.
+inline unsigned grid_size(int M, int N, int BM, int BN) {
+  const long long tiles = ((M + BM - 1LL) / BM) * ((N + BN - 1LL) / BN);
+  return tiles > 0x7fffffffLL ? 0u : static_cast<unsigned>(tiles);
+}
+
 template <typename T, int EPI, int BM, int BN>
 cudaError_t launch_small(const void* x, const void* w, const void* b, void* out, int M, int N,
                          int K, int k_split, int k_chunk, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const unsigned grid = grid_size(M, N, BM, BN);
+  if (grid == 0) return cudaErrorInvalidValue;
   const int smem = static_cast<int>(4 * small_floats(BM, BN, k_split, k_chunk));
   fused_dense_small_kernel<T, EPI, BM, BN><<<grid, 32 * k_split, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
@@ -309,7 +330,8 @@ cudaError_t launch_small(const void* x, const void* w, const void* b, void* out,
 template <typename T, int EPI, int BM, int BN, int BK>
 cudaError_t launch(const void* x, const void* w, const void* b, void* out,
                    int M, int N, int K, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const unsigned grid = grid_size(M, N, BM, BN);
+  if (grid == 0) return cudaErrorInvalidValue;
   fused_dense_kernel<T, EPI, BM, BN, BK><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(b), static_cast<T*>(out), M, N, K);
@@ -357,7 +379,7 @@ cudaError_t pick_epilogue(int epilogue, const Tiling& t, const void* x, const vo
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).  `b`
-// may be null (no bias).  dtype: 0 float32, 1 bfloat16; epilogue: 0 none,
+// may be null (no bias).  dtype: 0 float32, 1 bfloat16, 2 float16; epilogue: 0 none,
 // 1 relu, 2 gelu; route, bm, bn, k_split, k_chunk: the tiling
 // `dense_tiling` chose (cudaErrorInvalidValue for one this source does not
 // build).  All pointers are device pointers to contiguous row-major arrays;
@@ -372,6 +394,8 @@ extern "C" int fused_dense(const void* x, const void* w, const void* b, void* ou
       return pick_epilogue<float>(epilogue, t, x, w, b, out, M, N, K, s);
     case kBFloat16:
       return pick_epilogue<__nv_bfloat16>(epilogue, t, x, w, b, out, M, N, K, s);
+    case kFloat16:
+      return pick_epilogue<__half>(epilogue, t, x, w, b, out, M, N, K, s);
     default:
       return cudaErrorInvalidValue;
   }

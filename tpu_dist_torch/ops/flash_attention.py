@@ -9,7 +9,8 @@ built at first use by `_build.build` and called through ``ctypes``:
   dims 64 and 128;
 - ``csrc/flash_attention.cu``: SIMT kernels for every dtype and head dim
   up to 256, which take float32 (whose products must stay float32, not the
-  tensor cores' TF32) and the other head dims.
+  tensor cores' TF32) and the other head dims.  `simt_tiling` picks the
+  tiles of its forward and dK/dV for each head dim.
 
 `flash_route` picks one by dtype and head dim.  Beside the kernels:
 
@@ -36,14 +37,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from tpu_dist_torch.ops import _build
 
 NEG_INF = -1e30
-TILE = 64  # the SIMT kernels' query and key tile up to d = 128 (the TPU kernels' bq, bk: 256)
+TILE = 64  # the SIMT dQ kernel's query and key tile up to d = 128 (the TPU kernels' bq, bk: 256)
 MAX_HEAD_DIM = 256
+SIMT_WIDTHS = (16, 32, 64, 128, 256)  # the SIMT kernels' head-dim templates
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_GRID_Y = 65535  # the kernels' grid is (bh, S / tile)
 # The tensor-core kernels: their dtypes and head dims, their forward query
@@ -62,10 +65,51 @@ _REFERENCE_BLOCK = 1 << 27
 
 
 def tile_rows(d: int) -> int:
-    """The SIMT kernels' query and key tile for head dim ``d``: 64 rows, and
-    32 at d > 128, where four 64-row float32 tiles would not fit in a block's
-    shared memory."""
+    """The SIMT dQ kernel's query and key tile for head dim ``d``: 64 rows,
+    and 32 at d > 128, where four 64-row float32 tiles would not fit in a
+    block's shared memory."""
     return TILE if d <= 128 else TILE // 2
+
+
+def head_width(d: int) -> int:
+    """The SIMT kernels' template width for head dim ``d``: the head dim is
+    padded with zeros up to it."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"the flash kernels take head dims 1..{MAX_HEAD_DIM}, got {d}")
+    return next(w for w in SIMT_WIDTHS if d <= w)
+
+
+class SimtTiling(NamedTuple):
+    """The tiles of the SIMT forward or dK/dV at one template width: a
+    block owns ``rows`` rows (query rows in the forward, keys in dK/dV) and
+    scans ``cols``-row tiles of the other side (keys, queries) through
+    ``stages`` shared-memory buffers."""
+
+    rows: int
+    cols: int
+    stages: int
+
+
+# (rows, cols, stages) by template width: the one tiling
+# csrc/flash_attention.cu builds at each (`run<T, D>`, which refuses any
+# other).  The forward takes 128 query rows at widths 32 and 64, so that
+# each K and V tile it reads serves twice the rows; the rows fall as the
+# width grows, so that a thread's accumulators stay in registers.
+_SIMT_TILES = {
+    "fwd": {16: (64, 64, 1), 32: (128, 64, 1), 64: (128, 64, 1), 128: (64, 32, 1),
+            256: (32, 16, 1)},
+    "dkv": {16: (64, 32, 1), 32: (64, 32, 1), 64: (64, 32, 1), 128: (32, 64, 2),
+            256: (16, 32, 2)},
+}
+
+
+def simt_tiling(kernel: str, d: int) -> SimtTiling:
+    """The tiling of the SIMT forward (``kernel="fwd"``) or dK/dV
+    (``"dkv"``) for head dim ``d``, in every dtype; the wrapper passes it to
+    the C entry point."""
+    if kernel not in _SIMT_TILES:
+        raise ValueError(f"kernel is 'fwd' or 'dkv', got {kernel!r}")
+    return SimtTiling(*_SIMT_TILES[kernel][head_width(d)])
 
 
 def key_tile_range(
@@ -206,9 +250,10 @@ def flash_dq_reference(q3, k3, v3, go, lse, delta, *, causal=False, window=None)
 # ------------------------------------------------------------------- kernels
 
 
-_SIGNATURES = {  # pointer count of each entry point, before the shared tail
-    "flash_attention": {"flash_fwd": 5, "flash_dkv": 8, "flash_dq": 7},
-    "flash_attention_sm90": {"flash_fwd_sm90": 5, "flash_dkv_sm90": 8, "flash_dq_sm90": 7},
+_SIGNATURES = {  # pointers, then tiling ints after the shared tail, of each entry point
+    "flash_attention": {"flash_fwd": (5, 3), "flash_dkv": (8, 3), "flash_dq": (7, 0)},
+    "flash_attention_sm90": {"flash_fwd_sm90": (5, 0), "flash_dkv_sm90": (8, 0),
+                             "flash_dq_sm90": (7, 0)},
 }
 _ERROR_STRINGS = {"flash_attention": "flash_error_string",
                   "flash_attention_sm90": "flash_sm90_error_string"}
@@ -218,10 +263,10 @@ _ERROR_STRINGS = {"flash_attention": "flash_error_string",
 def _library(source: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.build(source).path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    tail = [i, i, i, ctypes.c_float, i, i, i, p]  # bh S d scale dtype causal window stream
-    for name, pointers in _SIGNATURES[source].items():
+    tail = [i, i, i, ctypes.c_float, i, i, i]  # bh S d scale dtype causal window
+    for name, (pointers, tiling) in _SIGNATURES[source].items():
         fn = getattr(lib, name)
-        fn.argtypes = [p] * pointers + tail
+        fn.argtypes = [p] * pointers + tail + [i] * tiling + [p]  # ..., stream
         fn.restype = ctypes.c_int
     errors = getattr(lib, _ERROR_STRINGS[source])
     errors.argtypes = [i]
@@ -270,13 +315,14 @@ def _check_sm90(name, blocks, rows):
     return shape
 
 
-def _launch(source, fn, pointers, shape, dtype, causal, window, device):
+def _launch(source, fn, pointers, shape, dtype, causal, window, device, tiling=()):
     bh, S, d = shape
     lib = _library(source)
     with torch.cuda.device(device):
         code = getattr(lib, fn)(
             *pointers, bh, S, d, d**-0.5, _DTYPE_CODES[dtype], int(causal),
-            0 if window is None else window, torch.cuda.current_stream().cuda_stream,
+            0 if window is None else window, *tiling,
+            torch.cuda.current_stream().cuda_stream,
         )
     if code != 0:
         reason = getattr(lib, _ERROR_STRINGS[source])(code).decode()
@@ -284,15 +330,17 @@ def _launch(source, fn, pointers, shape, dtype, causal, window, device):
 
 
 def flash_fwd_simt(q3, k3, v3, *, causal=False, window=None):
-    """Launch the SIMT forward kernel on the current stream; returns ``out``
-    (bh, S, d) in q's dtype and ``lse`` (bh, S) float32.  Raises on anything
-    it does not take.  Counts each launch in ``flash_fwd_simt.launches``."""
-    shape = _check_operands("flash_fwd_simt", [q3, k3, v3], [], tile_rows(q3.shape[-1]))
+    """Launch the SIMT forward kernel on the current stream, on the tiles
+    `simt_tiling` picks; returns ``out`` (bh, S, d) in q's dtype and ``lse``
+    (bh, S) float32.  Raises on anything it does not take.  Counts each
+    launch in ``flash_fwd_simt.launches``."""
+    tiles = simt_tiling("fwd", q3.shape[-1])
+    shape = _check_operands("flash_fwd_simt", [q3, k3, v3], [], tiles.rows)
     out = torch.empty_like(q3)
     lse = torch.empty(shape[:2], dtype=torch.float32, device=q3.device)
     _launch("flash_attention", "flash_fwd",
             [t.data_ptr() for t in (q3, k3, v3, out, lse)],
-            shape, q3.dtype, causal, window, q3.device)
+            shape, q3.dtype, causal, window, q3.device, tiles)
     flash_fwd_simt.launches += 1
     return out, lse
 
@@ -312,14 +360,15 @@ def flash_fwd_sm90(q3, k3, v3, *, causal=False, window=None):
 
 
 def flash_dkv_simt(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
-    """Launch the SIMT dK/dV kernel; returns ``(dk, dv)`` in k's dtype.
-    Counts each launch in ``flash_dkv_simt.launches``."""
-    shape = _check_operands("flash_dkv_simt", [q3, k3, v3, go], [lse, delta],
-                            tile_rows(q3.shape[-1]))
+    """Launch the SIMT dK/dV kernel on the tiles `simt_tiling` picks;
+    returns ``(dk, dv)`` in k's dtype.  Counts each launch in
+    ``flash_dkv_simt.launches``."""
+    tiles = simt_tiling("dkv", q3.shape[-1])
+    shape = _check_operands("flash_dkv_simt", [q3, k3, v3, go], [lse, delta], tiles.rows)
     dk, dv = torch.empty_like(k3), torch.empty_like(v3)
     _launch("flash_attention", "flash_dkv",
             [t.data_ptr() for t in (q3, k3, v3, go, lse, delta, dk, dv)],
-            shape, q3.dtype, causal, window, q3.device)
+            shape, q3.dtype, causal, window, q3.device, tiles)
     flash_dkv_simt.launches += 1
     return dk, dv
 

@@ -36,7 +36,7 @@ _EPILOGUES = {
     "gelu": functools.partial(F.gelu, approximate="tanh"),  # jax.nn.gelu's form
 }
 _EPILOGUE_CODES = {"none": 0, "relu": 1, "gelu": 2}
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _INT32_MAX = 2**31 - 1
 _ROUTE_CODES = {"small": 0, "large": 1}
 LARGE_TILE = (64, 64, 16)  # the large route's bm, bn and K step
@@ -142,7 +142,7 @@ def fused_dense(
         raise ValueError("fused_dense takes CUDA tensors on one device")
     if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype for t in operands):
         raise TypeError(
-            f"fused_dense takes float32 or bfloat16 operands of one dtype, got "
+            f"fused_dense takes float32, bfloat16 or float16 operands of one dtype, got "
             f"{[t.dtype for t in operands]}"
         )
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
@@ -154,8 +154,8 @@ def fused_dense(
         raise ValueError(f"bias must have shape ({n},), got {tuple(b.shape)}")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("fused_dense takes contiguous tensors")
-    if max(m * k, k * n, m * n) > _INT32_MAX:
-        raise ValueError(f"fused_dense shape {(m, k, n)} exceeds 32-bit indexing")
+    if max(m, k, n) > _INT32_MAX:  # each is a C int; offsets are 64-bit
+        raise ValueError(f"fused_dense shape {(m, k, n)} has a dimension past 2^31 - 1")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
