@@ -31,9 +31,10 @@ the exit code is nonzero:
           forward and forward + backward, the time of
           ``scaled_dot_product_attention`` on the same inputs, and for the
           backward pair (dK/dV + dQ) SDPA's forward + backward less its
-          forward; at the LM shape the SIMT forward, dK/dV and dQ timed too;
-          the count of dK elements that differ from the plain version at
-          d = 8, float32.
+          forward; at the LM shape the SIMT forward, dK/dV and dQ timed too
+          (each SIMT row with the `simt_tiling` it ran); the counts of dK
+          and dQ elements that differ from the plain version at d = 8,
+          float32.
 [lm]      ``LMTrainer.fit`` of the GPT-2-small-class TransformerLM (vocab
           32768, dim 768, depth 12, heads 12, rope, seq 1024, global batch
           16, bfloat16 compute) with TPU_DIST_FLASH=1 for two epochs, its
@@ -359,12 +360,13 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
         q, k, v, go = checks.flash_inputs(bh, S, d, dtype, device, seed=seed + 1)
         kw = dict(causal=causal, window=window)
         d8_f32 = d == 8 and dtype == torch.float32
-        checked = checks.check_flash_kernels(q, k, v, go, **kw, exact_dk=d8_f32)
+        checked = checks.check_flash_kernels(q, k, v, go, **kw, exact_dk=d8_f32, exact_dq=d8_f32)
         errs, tol, route = checked["max_abs_err"], checked["tol"], checked["route"]
         want_lse, delta = checked["lse"], checked["delta"]
         if d8_f32:
             print(f"[flash] dK elements that differ from the plain version at d = 8 float32: "
-                  f"{checked['dk_differing']} of {bh * S * d}", flush=True)
+                  f"{checked['dk_differing']} of {bh * S * d}; dQ elements: "
+                  f"{checked['dq_differing']} of {bh * S * d}", flush=True)
 
         product = 2 * bh * S * S * d * visible_fraction(S, causal, window, flops, fa)
         block, row = bh * S * d * q.element_size(), bh * S * 4
@@ -395,7 +397,9 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
             ms = time_ms(lambda: kernel(*args, **kw), iters, graph=False)
             rows.append({
                 "kernel": name, **shape, "max_abs_err": err, "tol": tol,
+                "tiling": fa.simt_tiling(fn[6:], d)._asdict() if name.endswith("_simt") else None,
                 "dk_differing": checked["dk_differing"] if name == f"flash_dkv_{route}" else None,
+                "dq_differing": checked["dq_differing"] if name == f"flash_dq_{route}" else None,
                 "timing": f"CUDA events around {iters} eager launches",
                 "ms": ms, "tflops": work[fn][1] / ms / 1e9,
                 "plain_ms": time_ms(plain[fn], iters, graph=False),

@@ -162,14 +162,15 @@ def test_flash_kernels_match_plain_versions(card, mask, shape, d, dtype):
     type the JAX kernels take, each through its route: bfloat16 and float16
     at d = 64 and 128 through the tensor-core forward and dK/dV (the check
     asserts which wrappers launched), the rest through the SIMT kernels.
-    At d = 8 in float32, where the scale is no power of two, dK equals the
-    plain version bit for bit while the plain version's product over the S
-    queries is one in-order sum, as the kernel's (S <= 128 here; cuBLAS
-    splits the sum at S = 1024)."""
+    At d = 8 in float32, where the scale is no power of two, dK and dQ
+    equal the plain version bit for bit while the plain version's products
+    over the S queries and keys are in-order sums, as the kernels' (S <=
+    128 here; cuBLAS splits the sum at S = 1024)."""
     causal, window = mask
     q, k, v, go = checks.flash_inputs(*shape, d, dtype, card)
+    exact = d == 8 and dtype == torch.float32 and shape[1] <= 128
     checks.check_flash_kernels(q, k, v, go, causal=causal, window=window,
-                               exact_dk=d == 8 and dtype == torch.float32 and shape[1] <= 128)
+                               exact_dk=exact, exact_dq=exact)
 
 
 def test_flash_kernels_past_2_31_elements(card):
@@ -252,34 +253,63 @@ def test_flash_simt_fwd_and_dkv_match_plain_versions(card, mask, shape, d, dtype
     torch.testing.assert_close(dv, want_dv, **tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("d", [5, 16, 32, 64, 100, 128, 256], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("shape", [(3, 128), (2, 129), (1, 1000)],
+                         ids=lambda s: f"bh{s[0]}-S{s[1]}")
+@pytest.mark.parametrize("mask", MASKS, ids=lambda m: f"causal{int(m[0])}-w{m[1]}")
+def test_flash_simt_dq_matches_plain_version(card, mask, shape, d, dtype):
+    """The SIMT dQ alone, at every template width and input type as the
+    forward and dK/dV above: unmasked, causal and windowed, ragged S (129
+    and 1000 end inside every query and key tile of `simt_tiling("dq",
+    d)`), against `flash_dq_reference` on the plain forward's lse and D."""
+    causal, window = mask
+    kw = dict(causal=causal, window=window)
+    q, k, v, go = checks.flash_inputs(*shape, d, dtype, card, seed=17)
+    out, lse = fa.flash_fwd_reference(q, k, v, **kw)
+    delta = (go.float() * out.float()).sum(-1)
+    before = fa.flash_dq_simt.launches
+    got = fa.flash_dq_simt(q, k, v, go, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_dq_simt.launches == before + 1 and got.dtype == dtype
+    want = fa.flash_dq_reference(q, k, v, go, lse, delta, **kw)
+    torch.testing.assert_close(got, want, **checks.FLASH_TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=lambda t: str(t)[6:])
 @pytest.mark.parametrize("d", [16, 64, 128, 256], ids=lambda d: f"d{d}")
 def test_flash_simt_is_the_same_from_run_to_run(card, d, dtype):
     """No atomics and no order that depends on timing: each block owns its
-    output rows and sums in a fixed order, so runs of the SIMT forward and
-    dK/dV on the same inputs agree bit for bit."""
+    output rows and sums in a fixed order, so runs of the SIMT forward,
+    dK/dV and dQ on the same inputs agree bit for bit."""
     q, k, v, go = checks.flash_inputs(24, 1000, d, dtype, card, seed=7)
     out, lse = fa.flash_fwd_simt(q, k, v, causal=True)
     delta = (go.float() * out.float()).sum(-1)
     runs = [fa.flash_dkv_simt(q, k, v, go, lse, delta, causal=True) for _ in range(3)]
+    dqs = [fa.flash_dq_simt(q, k, v, go, lse, delta, causal=True) for _ in range(3)]
     again = [fa.flash_fwd_simt(q, k, v, causal=True) for _ in range(2)]
     torch.cuda.synchronize()
     for dk, dv in runs[1:]:
         assert torch.equal(dk, runs[0][0]) and torch.equal(dv, runs[0][1])
+    for dq in dqs[1:]:
+        assert torch.equal(dq, dqs[0])
     for o, m in again:
         assert torch.equal(o, out) and torch.equal(m, lse)
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256], ids=lambda d: f"d{d}")
 def test_simt_entry_points_take_only_their_tiling(card, d, kernel):
-    """The source builds one tiling of the SIMT forward and dK/dV at each
-    width: its entry point takes the one `simt_tiling` names and refuses it
-    with any field changed, so the two cannot drift apart unseen."""
+    """The source builds one tiling of the SIMT forward, dK/dV and dQ at
+    each width: its entry point takes the one `simt_tiling` names and
+    refuses it with any field changed, so the two cannot drift apart
+    unseen."""
     q, k, v, go = checks.flash_inputs(2, 256, d, torch.float32, card)
     lse = torch.zeros(2, 256, device=card)
     out, out2 = torch.empty_like(q), torch.empty_like(q)
-    operands = (q, k, v, out, lse) if kernel == "fwd" else (q, k, v, go, lse, lse, out, out2)
+    operands = {"fwd": (q, k, v, out, lse), "dkv": (q, k, v, go, lse, lse, out, out2),
+                "dq": (q, k, v, go, lse, lse, out)}[kernel]
     launch = functools.partial(fa._launch, "flash_attention", f"flash_{kernel}",
                                [t.data_ptr() for t in operands], tuple(q.shape), q.dtype,
                                True, None, q.device)

@@ -162,8 +162,9 @@ def test_tile_ranges_skip_only_masked_tiles(S, bq, bk):
 
 
 def test_tile_ranges_cut_the_work():
-    """Causal scans about half the tiles, and a narrow window a band."""
-    S, t = 1024, fa.TILE
+    """Causal scans about half the tiles, and a narrow window a band (at
+    64-row query and key tiles)."""
+    S, t = 1024, 64
     n = S // t
     causal = sum(np.subtract(*fa.key_tile_range(i, S, t, t, causal=True, window=None)[::-1])
                  for i in range(n))
@@ -173,11 +174,13 @@ def test_tile_ranges_cut_the_work():
 
 
 def test_tiles_and_peaks_cover_every_kernel_shape_and_dtype():
-    """The kernels take 32-row tiles only past d = 128, and the card's peak
-    table (the bounds `chip_smoke.py` prints) holds every dtype they take."""
+    """dQ's query tiles, which set its grid, are 64 rows at every head dim,
+    and the card's peak table (the bounds `chip_smoke.py` prints) holds
+    every dtype the kernels take."""
     from tpu_dist_torch.train import flops
 
-    assert [fa.tile_rows(d) for d in (8, 64, 128, 129, 256)] == [64, 64, 64, 32, 32]
+    rows = [fa.simt_tiling("dq", d).rows for d in (8, 64, 128, 129, 256)]
+    assert rows == [64, 64, 64, 64, 64]
     for dtype in fa._DTYPE_CODES:
         assert flops.peak_flops("NVIDIA H100 80GB HBM3", dtype) > 0
 
@@ -242,7 +245,7 @@ def test_dispatch_takes_the_wrapper_the_route_names(monkeypatch, dtype, d):
     assert (called[-1] == "flash_dq_sm90") == sm90
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])
 @pytest.mark.parametrize("d", [1, 8, 16, 17, 32, 64, 100, 128, 200, 256])
 def test_simt_tiling_is_one_the_kernel_builds(kernel, d):
     """Every head dim takes the tiling of its template width, the narrowest
@@ -258,31 +261,35 @@ def test_simt_tiling_is_one_the_kernel_builds(kernel, d):
 
 
 def test_simt_tiling_refuses_another_kernel_or_head_dim():
+    assert fa.simt_tiling("dq", 64) == fa.SimtTiling(*fa._SIMT_TILES["dq"][64])
     with pytest.raises(ValueError, match="kernel"):
-        fa.simt_tiling("dq", 64)
-    for d in (0, 257):
-        with pytest.raises(ValueError, match="head dims"):
-            fa.simt_tiling("fwd", d)
+        fa.simt_tiling("bwd", 64)
+    for kernel in ("fwd", "dkv", "dq"):
+        for d in (0, 257):
+            with pytest.raises(ValueError, match="head dims"):
+                fa.simt_tiling(kernel, d)
 
 
 @pytest.mark.parametrize("width", fa.SIMT_WIDTHS)
 @pytest.mark.parametrize("S", [64, 100, 129, 300, 1024])
 def test_simt_tile_ranges_cover_every_visible_pair_once(S, width):
-    """The forward's query tiles with their key-tile ranges, and dK/dV's key
-    tiles with their query-tile ranges, at each width's tiles: every visible
-    (query, key) pair lies in exactly one scanned tile pair, under every
-    mask kind."""
-    fwd = fa.simt_tiling("fwd", width)
+    """The forward's and dQ's query tiles with their key-tile ranges, and
+    dK/dV's key tiles with their query-tile ranges, at each width's tiles:
+    every visible (query, key) pair lies in exactly one scanned tile pair,
+    under every mask kind."""
     dkv = fa.simt_tiling("dkv", width)
     for causal, window in itertools.product([False, True], [None, 1, 17, 64, 1000]):
         visible = _brute_force_visible(S, causal, window).numpy()
         seen = np.zeros((S, S), dtype=np.int64)
-        bq, bk = fwd.rows, fwd.cols
-        for i in range(-(-S // bq)):
-            lo, hi = fa.key_tile_range(i, S, bq, bk, causal=causal, window=window)
-            for j in range(lo, hi):
-                seen[i * bq:(i + 1) * bq, j * bk:(j + 1) * bk] += 1
-        assert (seen[visible] == 1).all(), ("fwd", causal, window)
+        for kernel in ("fwd", "dq"):
+            tiles = fa.simt_tiling(kernel, width)
+            bq, bk = tiles.rows, tiles.cols
+            seen[:] = 0
+            for i in range(-(-S // bq)):
+                lo, hi = fa.key_tile_range(i, S, bq, bk, causal=causal, window=window)
+                for j in range(lo, hi):
+                    seen[i * bq:(i + 1) * bq, j * bk:(j + 1) * bk] += 1
+            assert (seen[visible] == 1).all(), (kernel, causal, window)
         seen[:] = 0
         bq, bk = dkv.cols, dkv.rows
         for j in range(-(-S // bk)):

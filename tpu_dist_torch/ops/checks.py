@@ -7,8 +7,8 @@ and by ``chip_smoke.py``:
   names (tensor-core forward, dK/dV and dQ for bfloat16 and float16 at
   d = 64 and 128, SIMT otherwise) against their plain versions on given
   inputs (any head dim up to 256, float32, bfloat16 or float16), with the
-  launch counts that show which kernels ran and the count of dK elements
-  that differ at all;
+  launch counts that show which kernels ran and the counts of dK and dQ
+  elements that differ at all;
 - `check_flash_past_2_31`: the flash kernels on (bh, S, d) arrays of more
   than 2^31 elements, held to the plain version on the heads that lie past
   2^31;
@@ -79,16 +79,18 @@ def _require_route(before: dict, route: str) -> None:
 
 
 def check_flash_kernels(q, k, v, go, *, causal: bool, window: int | None,
-                        exact_dk: bool = False) -> dict:
+                        exact_dk: bool = False, exact_dq: bool = False) -> dict:
     """Forward (out, lse), dK/dV and dQ against the plain versions, the
     backward kernels fed the plain forward's lse and D = rowsum(dO * out);
     the route's forward, dK/dV and dQ wrappers each launched once, no other
     wrapper.  Returns the route, the plain lse and D (for timing) and,
-    per kernel, the max |difference|; ``dk_differing`` counts dK elements that differ at all,
-    and ``exact_dk`` requires it to be 0: in float32 the kernel sums dS^T Q
-    in query order with one FMA accumulator and scales once after the sum,
-    which equals the plain version bit for bit wherever its product is one
-    in-order sum too (short S; cuBLAS splits long sums)."""
+    per kernel, the max |difference|; ``dk_differing`` and ``dq_differing``
+    count dK and dQ elements that differ at all, and ``exact_dk`` and
+    ``exact_dq`` require them to be 0: in float32 the kernels sum dS^T Q in
+    query order and dS K in key order, each with one FMA accumulator, and
+    scale once after the sum, which equals the plain version bit for bit
+    wherever its product is one in-order sum too (short S; cuBLAS splits
+    long sums)."""
     kw = dict(causal=causal, window=window)
     route = fa.flash_route(q.dtype, q.shape[-1])
     counts = _launch_counts()
@@ -112,10 +114,11 @@ def check_flash_kernels(q, k, v, go, *, causal: bool, window: int | None,
             torch.testing.assert_close(got, want, **(FLASH_TOL[torch.float32]
                                                       if got is lse else tol))
         errs[name] = max((g.float() - w.float()).abs().max().item() for g, w in checks)
-    dk_differing = _differing(dk, want_dk)
+    dk_differing, dq_differing = _differing(dk, want_dk), _differing(dq, want_dq)
     _require(not exact_dk or dk_differing == 0, f"{dk_differing} dK elements differ")
+    _require(not exact_dq or dq_differing == 0, f"{dq_differing} dQ elements differ")
     return {"max_abs_err": errs, "tol": tol, "dk_differing": dk_differing,
-            "lse": want_lse, "delta": delta, "route": route}
+            "dq_differing": dq_differing, "lse": want_lse, "delta": delta, "route": route}
 
 
 def check_flash_past_2_31(device, *, S: int = 256, d: int = 128, heads_checked: int = 2) -> dict:

@@ -35,14 +35,14 @@
 // (16, 32, 64, 128 or 256).  Offsets into q, k, v and the outputs are
 // 64-bit, so bh * S * d may pass 2^31.
 //
-// What bounds the forward and dK/dV on the H100.  At the LM shape (bh =
-// 192, S = 1024, d = 64, causal) in float32 the forward is 2 products of
+// What bounds the three kernels on the H100.  At the LM shape (bh = 192,
+// S = 1024, d = 64, causal) in float32 the forward is 2 products of
 // 2*bh*S^2*d FLOP at the causal fraction, 25.8 GFLOP on 201 MB: operations
 // bound it, 0.385 ms at the 67 TFLOP/s FFMA peak (dK/dV: 4 products, 0.770
-// ms).  An SM issues 128 FFMA a clock and reads 128 bytes (32 floats) a
-// clock from shared memory, so the products are fed from registers as much
-// as they can be, every shared-memory read is a vector, and no load is
-// waited for while the products could run.
+// ms; dQ: 3 products, 0.577 ms).  An SM issues 128 FFMA a clock and reads
+// 128 bytes (32 floats) a clock from shared memory, so the products are fed
+// from registers as much as they can be, every shared-memory read is a
+// vector, and no load is waited for while the products could run.
 // - Forward: both products are outer products, one step of the reduction
 //   at a time, as a SIMT matrix product is.  (q * scale) and K lie in shared
 //   memory transposed (head dim outermost), P^T likewise (key outermost),
@@ -70,16 +70,29 @@
 //   quarter-warp reads fall on distinct banks and every row stays 16-byte
 //   aligned; tiles wholly inside the visible band skip the mask; row max
 //   and row sum are `__shfl_xor_sync` over the 8 threads of a row.
-//   `__launch_bounds__` caps the registers so that two or three blocks
+//   `__launch_bounds__` caps the registers so that one to three blocks
 //   share an SM.
-// dQ keeps the first design: 64-row tiles (32 at D = 256), 4 x 4 per
-// thread, scalar reads from (D + 1)-float rows.
+// - dQ: the forward's layout and thread tiles with three products.
+//   (q * scale), dO, K and V lie in shared memory transposed; S and dP are
+//   outer products one head dim a step (a thread's TM rows of q or dO as
+//   one 16-byte load, its TN keys of K or V as two), dS^T goes through
+//   shared memory, and dQ += dS K runs one key a step from dS^T and the
+//   tile's K rows.  K is needed in both layouts: its rows are copied by
+//   `cp.async` during the score products and waited for only before dS K,
+//   and the next tile's K and V are loaded into registers during dS K and
+//   stored transposed after it.  S, dP and the dQ accumulators together
+//   bound the thread tile: below D = 128, S runs first and becomes P in its
+//   registers before dP runs, so that one product's fragments are live at
+//   a time, and at D = 64 a block is 64 query rows by 64 keys on 128
+//   threads (4 x 8 per thread, 247-249 registers), two blocks an SM; at
+//   D = 128 and 256 both products share one loop.
 //
-// The dK/dV kernel keeps what makes it exact: each dK element is one FMA
-// chain over the queries in query order (the plain version's in-order
-// product wherever that is one sum), scaled once after the sum; the score
-// product is one FMA chain over d of q * scale and k, and P = expf(S - lse)
-// as torch computes it.
+// The backward kernels keep what makes them exact: each dK or dQ element
+// is one FMA chain over the queries or keys in order (the plain version's
+// in-order product wherever that is one sum), scaled once after the sum;
+// the score product is one FMA chain over d of q * scale, rounded once,
+// and k; and P = expf(S - lse) as torch computes it (the SFU's 2^x buys
+// nothing where one exp serves 3 d or 4 d FMAs).
 //
 // The forward's exponent is not expf: it is the SFU's approximate 2^x
 // (`ex2.approx.ftz.f32`, at most 2 ulp from the rounded 2^x, results below
@@ -101,14 +114,6 @@
 
 namespace {
 
-// dQ: a block of 4 * TILE threads, (TILE / 4) x 16: thread (ty, tx) owns
-// the tile rows ty*4 + r (r < 4) and the columns tx + 16c of every row.
-template <int TILE>
-struct Tiling {
-  static constexpr int kThreads = 4 * TILE;
-  static constexpr int kCols = TILE / 16;  // score columns per thread
-  static constexpr int kPLD = TILE + 1;    // row stride of the score tiles
-};
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernels
 
 using index_t = long long;  // offsets into (bh, S, d) arrays
@@ -737,141 +742,256 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
 
 // ------------------------------------------------------------------- dQ
 
-// Stage rows [row0, row0 + TILE) of a row-major (S, d) matrix as float32,
-// times `mul`, into a (TILE, D + 1) shared tile; rows past S and columns
-// past d read as 0, which adds nothing to any product.
-template <typename T, int D, int TILE>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int row0, int S, int d, float mul) {
-  constexpr int LD = D + 1;
-  for (int e = threadIdx.x; e < TILE * D; e += Tiling<TILE>::kThreads) {
-    const int r = e / D;
-    const int c = e % D;
-    const int gr = row0 + r;
-    float v = 0.0f;
-    if (gr < S && c < d) v = to_float(src[(index_t)gr * d + c]) * mul;
-    dst[r * LD + c] = v;
-  }
+// Shared memory of a dQ block: (q * scale)^T, dO^T, K^T and V^T in float32,
+// head dim outermost; dS^T in float32 (key outermost); lse and D of the
+// block's rows; this key tile's K rows in the input type.
+template <typename T, int D, int BM, int BN, int TM>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * (2 * D * BM + 2 * D * BN + BN * FwdTile<T, D, BM, BN, TM>::PP + 2 * BM) +
+         sizeof(T) * BN * row_pitch<T, D>();
 }
 
-template <int D, int TILE>
-constexpr size_t dq_smem_floats() {
-  return 4 * TILE * (D + 1) + TILE * Tiling<TILE>::kPLD;
-}
-
-// One block per (query tile, batch-head), the layout of the forward; dS
-// goes through shared memory to the product over keys.
-template <typename T, int D, int TILE>
-__global__ void __launch_bounds__(Tiling<TILE>::kThreads)
+// One block per (query tile, batch-head), longest causal rows first, on the
+// forward's tiles (`FwdTile`): a thread owns TM query rows by TN keys of S
+// and dP, and the same TM rows by TD columns of dQ.  S = (q * scale) K^T
+// and dP = dO V^T are outer products, one head dim a step, from fragments
+// loaded one step ahead; dS = P (dP - D) goes through shared memory as
+// dS^T; dQ += dS K is an outer product one key a step, from dS^T and the
+// key tile's rows.  This tile's K rows are copied by `cp.async` during the
+// score products and waited for only before dS K; the next tile's K and V
+// are loaded into registers during dS K and stored transposed after it;
+// so a tile takes two barriers.  MIN_BLOCKS blocks an SM bound the
+// registers.
+template <typename T, int D, int BM, int BN, int TM_, int MIN_BLOCKS>
+__global__ void __launch_bounds__(FwdTile<T, D, BM, BN, TM_>::THREADS, MIN_BLOCKS)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int S,
-                    int d, float scale, int causal, int window) {
-  constexpr int LD = D + 1;
-  constexpr int DC = D / 16;
-  constexpr int KC = Tiling<TILE>::kCols;
-  constexpr int PLD = Tiling<TILE>::kPLD;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + TILE * LD;
-  float* Ks = dOs + TILE * LD;
-  float* Vs = Ks + TILE * LD;
-  float* dSs = Vs + TILE * LD;
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dq, int S, int d, float scale, int causal, int window,
+                    int vec) {
+  using L = FwdTile<T, D, BM, BN, TM_>;
+  constexpr int TM = L::TM, TN = L::TN, TD = L::TD, RW = L::RW, KW = L::KW, VW = L::VW;
+  constexpr int PP = L::PP, E = L::E, KCH = L::KCH, QCH = L::QCH, RG = L::RG;
+  constexpr int THREADS = L::THREADS;
+  constexpr int KP = row_pitch<T, D>();
+  extern __shared__ __align__(16) unsigned char shared[];
+  float* Qt = reinterpret_cast<float*>(shared);  // [D][BM]
+  float* dOt = Qt + D * BM;                       // [D][BM]
+  float* Kt = dOt + D * BM;                       // [D][BN]
+  float* Vt = Kt + D * BN;                        // [D][BN]
+  float* dSt = Vt + D * BN;                       // [BN][PP]
+  float* Ls = dSt + BN * PP;                      // [BM]
+  float* Ds = Ls + BM;                            // [BM]
+  T* Ks = reinterpret_cast<T*>(Ds + BM);          // [BN][KP]
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % kColGroups;
+  const int ty = threadIdx.x / kColGroups;
   const index_t bh = blockIdx.x;
   const int i = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
   const index_t base = bh * S * d;
-  const index_t row_base = bh * S;
-  const int q0 = i * TILE;
-
-  load_tile<T, D, TILE>(Qs, q + base, q0, S, d, scale);
-  load_tile<T, D, TILE>(dOs, dout + base, q0, S, d, 1.0f);
-  float lr[4], dr[4], dq_acc[4][DC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qp = q0 + ty * 4 + r;
-    lr[r] = qp < S ? lse[row_base + qp] : 0.0f;
-    dr[r] = qp < S ? delta[row_base + qp] : 0.0f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dq_acc[r][c] = 0.0f;
-  }
-
+  const int q0 = i * BM;
   int lo, hi;
-  key_tile_range(i, S, TILE, TILE, causal, window, &lo, &hi);
+  key_tile_range(i, S, BM, BN, causal, window, &lo, &hi);
+
+  // K and V chunk n of this thread: key c % BN, head dims c / BN * E .. + E - 1,
+  // c = threadIdx.x + n * THREADS (K^T and V^T stores of 32 consecutive keys a warp)
+  float kreg[KCH][E], vreg[KCH][E];
+  auto fetch_kv = [&](int j) {
+#pragma unroll
+    for (int n = 0; n < KCH; ++n) {
+      const int c = threadIdx.x + n * THREADS;
+      load_global<E>(k + base, j * BN + c % BN, c / BN * E, S, d, vec, kreg[n]);
+      load_global<E>(v + base, j * BN + c % BN, c / BN * E, S, d, vec, vreg[n]);
+    }
+  };
+  auto stash_kv = [&]() {
+#pragma unroll
+    for (int n = 0; n < KCH; ++n) {
+      const int c = threadIdx.x + n * THREADS;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        Kt[(c / BN * E + e) * BN + c % BN] = kreg[n][e];
+        Vt[(c / BN * E + e) * BN + c % BN] = vreg[n][e];
+      }
+    }
+  };
+  if (lo < hi) fetch_kv(lo);
+  for (int r = threadIdx.x; r < BM; r += THREADS) {
+    const bool in = q0 + r < S;
+    Ls[r] = in ? lse[bh * S + q0 + r] : 0.0f;
+    Ds[r] = in ? delta[bh * S + q0 + r] : 0.0f;
+  }
+  // (q * scale)^T, q * scale rounded once as in the plain version, and dO^T:
+  // QG chunks of each a round, every load of a round in flight before its
+  // stores (two rounds where one would hold more than 64 floats)
+  constexpr int QG = QCH * E > 32 ? QCH / 2 : QCH;
+  static_assert(QCH % QG == 0, "Q rounds must split evenly");
+#pragma unroll
+  for (int n0 = 0; n0 < QCH; n0 += QG) {
+    float qreg[QG][E], oreg[QG][E];
+#pragma unroll
+    for (int n = 0; n < QG; ++n) {
+      const int c = threadIdx.x + (n0 + n) * THREADS;
+      load_global<E>(q + base, q0 + c % BM, c / BM * E, S, d, vec, qreg[n]);
+      load_global<E>(dout + base, q0 + c % BM, c / BM * E, S, d, vec, oreg[n]);
+    }
+#pragma unroll
+    for (int n = 0; n < QG; ++n) {
+      const int c = threadIdx.x + (n0 + n) * THREADS;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        Qt[(c / BM * E + e) * BM + c % BM] = qreg[n][e] * scale;
+        dOt[(c / BM * E + e) * BM + c % BM] = oreg[n][e];
+      }
+    }
+  }
+  if (lo < hi) stash_kv();
+
+  float acc[TM][TD];
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int c = 0; c < TD; ++c) acc[a][c] = 0.0f;
+
   for (int j = lo; j < hi; ++j) {
-    const int k0 = j * TILE;
-    __syncthreads();
-    load_tile<T, D, TILE>(Ks, k + base, k0, S, d, 1.0f);
-    load_tile<T, D, TILE>(Vs, v + base, k0, S, d, 1.0f);
-    __syncthreads();
+    __syncthreads();  // K_j^T and V_j^T are in; the previous tile's dS^T and K rows are read
+    copy_rows<T, D, BN, THREADS>(Ks, k + base, j * BN, S, d, vec);  // waited for before dS K
+    cp_async_commit();
 
-    float s[4][KC], dp[4][KC];
+    // S = (q * scale) K^T and dP = dO V^T, one head dim a step from
+    // fragments loaded a step ahead, each score one FMA chain over d in
+    // order; P = exp(S - lse), exactly 0 where masked, and dS = P (dP - D).
+    // At D = 128 and 256, where a block holds few warps, both products run
+    // in one loop for their independent FMAs; below, S runs first and
+    // becomes P in its registers before dP runs, so that the two products'
+    // fragments are never live together.
+    constexpr bool kOneLoop = D >= 128;
+    constexpr int NP = kOneLoop ? 2 : 1;  // products a loop runs: c0 += A0 B0^T (, c1 += A1 B1^T)
+    constexpr int kUnroll = D >= 256 ? 2 : 4;  // steps unrolled; 2 keeps D = 256 in registers
+    auto product = [&](const float* A0, const float* B0, float (&c0)[TM][TN],
+                       const float* A1, const float* B1, float (&c1)[TM][TN]) {
+      const float* A[2] = {A0, A1};
+      const float* B[2] = {B0, B1};
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int a = 0; a < TM; ++a)
 #pragma unroll
-      for (int c = 0; c < KC; ++c) s[r][c] = dp[r][c] = 0.0f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; ++kk) {
-      float qr[4], orow[4], kc[KC], vc[KC];
+        for (int b = 0; b < TN; ++b) c0[a][b] = c1[a][b] = 0.0f;
+      float af[2][NP][TM], bf[2][NP][TN];
+      auto load_step = [&](int c, int buf) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        qr[r] = Qs[(ty * 4 + r) * LD + kk];
-        orow[r] = dOs[(ty * 4 + r) * LD + kk];
-      }
+        for (int p = 0; p < NP; ++p) {
 #pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        kc[c] = Ks[(tx + 16 * c) * LD + kk];
-        vc[c] = Vs[(tx + 16 * c) * LD + kk];
-      }
+          for (int g = 0; g < TM / RW; ++g)
+            load_vec<RW>(A[p] + c * BM + g * RG * RW + ty * RW, af[buf][p] + g * RW);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < KC; ++c) {
-          s[r][c] = fmaf(qr[r], kc[c], s[r][c]);
-          dp[r][c] = fmaf(orow[r], vc[c], dp[r][c]);
+          for (int g = 0; g < TN / KW; ++g)
+            load_vec<KW>(B[p] + c * BN + g * kColGroups * KW + tx * KW, bf[buf][p] + g * KW);
         }
-    }
+      };
+      auto fma_step = [&](int buf) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qp = q0 + ty * 4 + r;
+        for (int a = 0; a < TM; ++a)
 #pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        const bool vis = visible(qp, k0 + tx + 16 * c, S, causal, window);
-        const float p = vis ? expf(s[r][c] - lr[r]) : 0.0f;
-        dSs[(ty * 4 + r) * PLD + tx + 16 * c] = p * (dp[r][c] - dr[r]);
+          for (int b = 0; b < TN; ++b) {
+            c0[a][b] = fmaf(af[buf][0][a], bf[buf][0][b], c0[a][b]);
+            if (NP == 2) c1[a][b] = fmaf(af[buf][NP - 1][a], bf[buf][NP - 1][b], c1[a][b]);
+          }
+      };
+      load_step(0, 0);
+#pragma unroll (kUnroll)
+      for (int c = 0; c < D; c += 2) {
+        load_step(c + 1, 1);
+        fma_step(0);
+        if (c + 2 < D) load_step(c + 2, 0);
+        fma_step(1);
       }
+    };
+    const int k0 = j * BN;
+    const bool edge = k0 + BN > S || q0 + BM > S || (causal && k0 + BN - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BM - 1 - window);
+    auto to_probabilities = [&](float (&x)[TM][TN]) {
+#pragma unroll
+      for (int a = 0; a < TM; ++a) {
+        const int row = L::row(ty, a);
+        const float l = Ls[row];
+#pragma unroll
+        for (int b = 0; b < TN; ++b) {
+          const bool vis = !edge || visible(q0 + row, k0 + L::key(tx, b), S, causal, window);
+          x[a][b] = vis ? expf(x[a][b] - l) : 0.0f;
+        }
+      }
+    };
+    float s[TM][TN], dp[TM][TN];
+    if (kOneLoop) {
+      product(Qt, Kt, s, dOt, Vt, dp);
+      to_probabilities(s);
+    } else {  // one pair a loop: the second is not read
+      product(Qt, Kt, s, Qt, Kt, s);
+      to_probabilities(s);
+      product(dOt, Vt, dp, dOt, Vt, dp);
     }
-    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < TM; ++a) {
+      const float dd = Ds[L::row(ty, a)];
+#pragma unroll
+      for (int b = 0; b < TN; ++b) s[a][b] *= dp[a][b] - dd;  // dS, to dS^T below
+    }
+#pragma unroll
+    for (int b = 0; b < TN; ++b)
+#pragma unroll
+      for (int g = 0; g < TM / RW; ++g) {
+        float* dst = dSt + L::key(tx, b) * PP + g * RG * RW + ty * RW;
+        if constexpr (RW == 4) {
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(s[g * 4][b], s[g * 4 + 1][b], s[g * 4 + 2][b], s[g * 4 + 3][b]);
+        } else {
+#pragma unroll
+          for (int r = 0; r < RW; ++r) dst[r] = s[g * RW + r][b];
+        }
+      }
+    cp_async_wait_all();
+    __syncthreads();  // dS^T is written and K_j's rows are in; K^T and V^T are read
+    if (j + 1 < hi) fetch_kv(j + 1);  // in flight during dS K
 
-#pragma unroll 4
-    for (int kk = 0; kk < TILE; ++kk) {
-      float sr[4], kv[DC];
+    // dQ += dS K, one key a step: each dQ element one FMA chain over the
+    // keys in order
+    float sf[2][TM], kr[2][TD];
+    auto load_key = [&](int key, float* sa, float* kb) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) sr[r] = dSs[(ty * 4 + r) * PLD + kk];
+      for (int g = 0; g < TM / RW; ++g)
+        load_vec<RW>(dSt + key * PP + g * RG * RW + ty * RW, sa + g * RW);
 #pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = Ks[kk * LD + tx + 16 * c];
+      for (int g = 0; g < TD / VW; ++g)
+        load_vec<VW>(Ks + key * KP + g * kColGroups * VW + tx * VW, kb + g * VW);
+    };
+    load_key(0, sf[0], kr[0]);
+#pragma unroll (kUnroll)
+    for (int key = 0; key < BN; key += 2) {
+      load_key(key + 1, sf[1], kr[1]);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int a = 0; a < TM; ++a)
 #pragma unroll
-        for (int c = 0; c < DC; ++c) dq_acc[r][c] = fmaf(sr[r], kv[c], dq_acc[r][c]);
+        for (int c = 0; c < TD; ++c) acc[a][c] = fmaf(sf[0][a], kr[0][c], acc[a][c]);
+      if (key + 2 < BN) load_key(key + 2, sf[0], kr[0]);
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int c = 0; c < TD; ++c) acc[a][c] = fmaf(sf[1][a], kr[1][c], acc[a][c]);
     }
+    if (j + 1 < hi) stash_kv();
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qp = q0 + ty * 4 + r;
+  for (int a = 0; a < TM; ++a) {
+    const int qp = q0 + L::row(ty, a);
     if (qp >= S) continue;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d) store(dq + base + (index_t)qp * d + col, dq_acc[r][c] * scale);
+    for (int c = 0; c < TD; ++c) {
+      const int col = L::col(tx, c);
+      if (col < d) store(dq + base + (index_t)qp * d + col, acc[a][c] * scale);
     }
   }
 }
-
 
 // Launches `kernel` on a (bh, S / rows) grid of `threads` with `bytes` of
 // dynamic shared memory (above 48 KB a kernel must be allowed it first, or
@@ -900,7 +1020,7 @@ struct Call {
   float* lse_out;
   int bh, S, d, causal, window;
   float scale;
-  int rows, cols, stages;  // the forward's and dK/dV's tiling (`simt_tiling`)
+  int rows, cols, stages;  // the kernel's tiling (`simt_tiling`)
   cudaStream_t stream;
 };
 
@@ -946,26 +1066,30 @@ cudaError_t run_dkv(const Call& a) {
                 vector_copies<T>(a));
 }
 
-template <typename T, int D, int TILE>
+template <typename T, int D, int BM, int BN, int TM, int MIN_BLOCKS>
 cudaError_t run_dq(const Call& a) {
-  return launch(flash_dq_kernel<T, D, TILE>, sizeof(float) * dq_smem_floats<D, TILE>(),
-                Tiling<TILE>::kThreads, a.bh, a.S, TILE, a.stream, static_cast<const T*>(a.q),
-                static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-                static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.out), a.S,
-                a.d, a.scale, a.causal, a.window);
+  constexpr size_t bytes = dq_smem_bytes<T, D, BM, BN, TM>();
+  static_assert(fits_shared<bytes, MIN_BLOCKS>(), "MIN_BLOCKS blocks must fit an SM");
+  return launch(flash_dq_kernel<T, D, BM, BN, TM, MIN_BLOCKS>, bytes,
+                FwdTile<T, D, BM, BN, TM>::THREADS, a.bh, a.S, BM, a.stream,
+                static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse_in, a.delta,
+                static_cast<T*>(a.out), a.S, a.d, a.scale, a.causal, a.window,
+                vector_copies<T>(a));
 }
 
 enum Which { kFwd = 0, kDkv = 1, kDq = 2 };
 
-// The one tiling of the forward and of dK/dV built at each template width
-// D (`simt_tiling` in ops/flash_attention.py names its rows, cols and
-// stages; any other is refused, so the two cannot drift apart unseen), and
-// dQ's tile (`tile_rows` mirrors it).
+// The one tiling of the forward, of dK/dV and of dQ built at each template
+// width D (`simt_tiling` in ops/flash_attention.py names its rows, cols
+// and stages; any other is refused, so the two cannot drift apart unseen).
 template <typename T, int D>
 cudaError_t run(int which, const Call& a) {
   // The forward: (query rows, key tile, thread rows, blocks an SM); 256
   // threads at D = 32 and 64, 128 at the others.  dK/dV: (keys, query
-  // tile, stages, blocks an SM).
+  // tile, stages, blocks an SM).  dQ: (query rows, key tile, thread rows,
+  // blocks an SM) on the forward's thread layout; 256 threads at D = 256,
+  // 128 at the others.
   constexpr int kFwdRows = D == 32 || D == 64 ? 128 : D <= 128 ? 64 : 32;
   constexpr int kFwdCols = D <= 64 ? 64 : D == 128 ? 32 : 16;
   constexpr int kFwdTM = D <= 128 ? 4 : 2;
@@ -974,6 +1098,10 @@ cudaError_t run(int which, const Call& a) {
   constexpr int kDkvCols = D <= 64 ? 32 : D == 128 ? 64 : 32;
   constexpr int kDkvStages = D <= 64 ? 1 : 2;
   constexpr int kDkvBlocks = D <= 64 ? 3 : 1;
+  constexpr int kDqRows = 64;
+  constexpr int kDqCols = D == 16 || D == 64 ? 64 : D <= 128 ? 32 : 16;
+  constexpr int kDqTM = D <= 128 ? 4 : 2;
+  constexpr int kDqBlocks = D <= 32 ? 3 : D == 64 ? 2 : 1;
   switch (which) {
     case kFwd:
       if (a.rows != kFwdRows || a.cols != kFwdCols || a.stages != 1)
@@ -984,7 +1112,9 @@ cudaError_t run(int which, const Call& a) {
         return cudaErrorInvalidValue;
       return run_dkv<T, D, kDkvRows, kDkvCols, kDkvStages, kDkvBlocks>(a);
     case kDq:
-      return run_dq<T, D, (D <= 128 ? 64 : 32)>(a);
+      if (a.rows != kDqRows || a.cols != kDqCols || a.stages != 1)
+        return cudaErrorInvalidValue;
+      return run_dq<T, D, kDqRows, kDqCols, kDqTM, kDqBlocks>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1045,9 +1175,10 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse, const float* delta,
                         void* dq, int bh, int S, int d, float scale, int dtype,
-                        int causal, int window, void* stream) {
+                        int causal, int window, int rows, int cols, int stages,
+                        void* stream) {
   Call a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, bh, S, d,
-         causal, window, scale, 0, 0, 0, static_cast<cudaStream_t>(stream)};
+         causal, window, scale, rows, cols, stages, static_cast<cudaStream_t>(stream)};
   return dispatch(kDq, dtype, a);
 }
 

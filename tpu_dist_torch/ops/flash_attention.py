@@ -10,7 +10,7 @@ built at first use by `_build.build` and called through ``ctypes``:
 - ``csrc/flash_attention.cu``: SIMT kernels for every dtype and head dim
   up to 256, which take float32 (whose products must stay float32, not the
   tensor cores' TF32) and the other head dims.  `simt_tiling` picks the
-  tiles of its forward and dK/dV for each head dim.
+  tiles of its forward, dK/dV and dQ for each head dim.
 
 `flash_route` picks one by dtype and head dim.  Beside the kernels:
 
@@ -44,7 +44,6 @@ import torch
 from tpu_dist_torch.ops import _build
 
 NEG_INF = -1e30
-TILE = 64  # the SIMT dQ kernel's query and key tile up to d = 128 (the TPU kernels' bq, bk: 256)
 MAX_HEAD_DIM = 256
 SIMT_WIDTHS = (16, 32, 64, 128, 256)  # the SIMT kernels' head-dim templates
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -64,13 +63,6 @@ _REFERENCE_BLOCK = 1 << 27
 # ---------------------------------------------------------------- tile ranges
 
 
-def tile_rows(d: int) -> int:
-    """The SIMT dQ kernel's query and key tile for head dim ``d``: 64 rows,
-    and 32 at d > 128, where four 64-row float32 tiles would not fit in a
-    block's shared memory."""
-    return TILE if d <= 128 else TILE // 2
-
-
 def head_width(d: int) -> int:
     """The SIMT kernels' template width for head dim ``d``: the head dim is
     padded with zeros up to it."""
@@ -80,10 +72,10 @@ def head_width(d: int) -> int:
 
 
 class SimtTiling(NamedTuple):
-    """The tiles of the SIMT forward or dK/dV at one template width: a
-    block owns ``rows`` rows (query rows in the forward, keys in dK/dV) and
-    scans ``cols``-row tiles of the other side (keys, queries) through
-    ``stages`` shared-memory buffers."""
+    """The tiles of the SIMT forward, dK/dV or dQ at one template width: a
+    block owns ``rows`` rows (query rows in the forward and dQ, keys in
+    dK/dV) and scans ``cols``-row tiles of the other side (keys, queries)
+    through ``stages`` shared-memory buffers."""
 
     rows: int
     cols: int
@@ -93,22 +85,25 @@ class SimtTiling(NamedTuple):
 # (rows, cols, stages) by template width: the one tiling
 # csrc/flash_attention.cu builds at each (`run<T, D>`, which refuses any
 # other).  The forward takes 128 query rows at widths 32 and 64, so that
-# each K and V tile it reads serves twice the rows; the rows fall as the
-# width grows, so that a thread's accumulators stay in registers.
+# each K and V tile it reads serves twice the rows; dQ, which holds S and
+# dP at once, takes 64 at every width.  The tiles narrow as the width
+# grows, so that a thread's accumulators stay in registers.
 _SIMT_TILES = {
     "fwd": {16: (64, 64, 1), 32: (128, 64, 1), 64: (128, 64, 1), 128: (64, 32, 1),
             256: (32, 16, 1)},
     "dkv": {16: (64, 32, 1), 32: (64, 32, 1), 64: (64, 32, 1), 128: (32, 64, 2),
             256: (16, 32, 2)},
+    "dq": {16: (64, 64, 1), 32: (64, 32, 1), 64: (64, 64, 1), 128: (64, 32, 1),
+           256: (64, 16, 1)},
 }
 
 
 def simt_tiling(kernel: str, d: int) -> SimtTiling:
-    """The tiling of the SIMT forward (``kernel="fwd"``) or dK/dV
-    (``"dkv"``) for head dim ``d``, in every dtype; the wrapper passes it to
-    the C entry point."""
+    """The tiling of the SIMT forward (``kernel="fwd"``), dK/dV (``"dkv"``)
+    or dQ (``"dq"``) for head dim ``d``, in every dtype; the wrapper passes
+    it to the C entry point."""
     if kernel not in _SIMT_TILES:
-        raise ValueError(f"kernel is 'fwd' or 'dkv', got {kernel!r}")
+        raise ValueError(f"kernel is 'fwd', 'dkv' or 'dq', got {kernel!r}")
     return SimtTiling(*_SIMT_TILES[kernel][head_width(d)])
 
 
@@ -251,7 +246,7 @@ def flash_dq_reference(q3, k3, v3, go, lse, delta, *, causal=False, window=None)
 
 
 _SIGNATURES = {  # pointers, then tiling ints after the shared tail, of each entry point
-    "flash_attention": {"flash_fwd": (5, 3), "flash_dkv": (8, 3), "flash_dq": (7, 0)},
+    "flash_attention": {"flash_fwd": (5, 3), "flash_dkv": (8, 3), "flash_dq": (7, 3)},
     "flash_attention_sm90": {"flash_fwd_sm90": (5, 0), "flash_dkv_sm90": (8, 0),
                              "flash_dq_sm90": (7, 0)},
 }
@@ -387,14 +382,14 @@ def flash_dkv_sm90(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
 
 
 def flash_dq_simt(q3, k3, v3, go, lse, delta, *, causal=False, window=None):
-    """Launch the SIMT dQ kernel; returns ``dq`` in q's dtype.  Counts
-    each launch in ``flash_dq_simt.launches``."""
-    shape = _check_operands("flash_dq_simt", [q3, k3, v3, go], [lse, delta],
-                            tile_rows(q3.shape[-1]))
+    """Launch the SIMT dQ kernel on the tiles `simt_tiling` picks; returns
+    ``dq`` in q's dtype.  Counts each launch in ``flash_dq_simt.launches``."""
+    tiles = simt_tiling("dq", q3.shape[-1])
+    shape = _check_operands("flash_dq_simt", [q3, k3, v3, go], [lse, delta], tiles.rows)
     dq = torch.empty_like(q3)
     _launch("flash_attention", "flash_dq",
             [t.data_ptr() for t in (q3, k3, v3, go, lse, delta, dq)],
-            shape, q3.dtype, causal, window, q3.device)
+            shape, q3.dtype, causal, window, q3.device, tiles)
     flash_dq_simt.launches += 1
     return dq
 
@@ -504,7 +499,8 @@ def flash_attention(
 
     ``bq``/``bk`` are the JAX kernel's blocks: S must divide by them after
     they clamp to S, as there; the CUDA kernels use their own tiles (128
-    rows on the tensor-core route, 64 or 32 on the SIMT one) and take any S.  ``window=w`` adds the band ``k > q - w``.
+    rows on the tensor-core route, `simt_tiling`'s on the SIMT one) and
+    take any S.  ``window=w`` adds the band ``k > q - w``.
     Differentiable: the backward runs the dK/dV and dQ kernels."""
     _validate(q, k, v, bq, bk, window, window_first=False)
     out = _Flash.apply(_flat(q), _flat(k), _flat(v), causal, window)
