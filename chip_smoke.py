@@ -59,6 +59,27 @@ the exit code is nonzero:
           bound, with no control-group collective per call; then a
           neighbour that cannot start, and ranks that pass another numel or
           dtype or disagree about growing, make both ranks' calls raise.
+[collectives] every collective of ``comm`` (all_reduce SUM/PRODUCT/MAX/MIN
+          in float32 and int32, world-wide and over a group {0, 2}, reduce,
+          broadcast, all_gather, gather, scatter, reduce_scatter,
+          all_to_all) under ``comm.spmd`` at worlds 2, 3 and 4 on this
+          card, one spawn a world, each held to its plain version on the
+          stacked inputs (the ranks share the card, so Gloo carries every
+          call through host memory); ``python -m
+          tpu_dist_torch.demos.gather --world 4`` and its known answer; a
+          ``comm.launch`` of 2 ranks through a ``file://`` store with
+          ``restarts=1``, rank 1 failing attempt 0, returning on attempt 1.
+[dp]      the MNIST Trainer at world 2 under ``comm.spmd`` (both ranks on
+          this card, TPU_DIST_PALLAS_DENSE=1, synthetic MNIST, global batch
+          128): 20 steps with ``grad_reduce="ring"``, then 20 with "psum"
+          from the same seed; per rank the ring kernel launched 9 times a
+          step (8 gradients and the loss) in the ring run and never in the
+          psum run, fused dense twice a step; losses and final parameters
+          the same bits in both runs and on both ranks, no control-group
+          collective after the first step; seconds per step (a correctness
+          run: the two ranks' kernels take turns on the card); then 3 more
+          ring steps traced per rank: the ring kernel's device time a
+          launch, the device's busy and idle share, the host's time a step.
 
 Then one JSON line per kernel, the card's name and power limit, and the
 result line.  Without a CUDA device it exits nonzero before printing any
@@ -69,6 +90,12 @@ result.
 runs only [env] and the float32 [lm] sub-phase (the kernels built at first
 use), to compare the SIMT kernels of two trees end to end, and prints no
 result line.
+
+    python3 chip_smoke.py --nccl
+
+needs four cards: it runs only [env], the build, [collectives] and [dp],
+where each rank now has a card of its own, so the collectives take NCCL
+on the card and [dp]'s ring kernel crosses NVLink; no result line.
 """
 
 from __future__ import annotations
@@ -248,7 +275,7 @@ def main_path(device, ops, card_name) -> dict:
 
     os.environ["TPU_DIST_PALLAS_DENSE"] = "1"
     os.environ.update(WORLD_SIZE="1", RANK="0", MASTER_ADDR="localhost")
-    os.environ.pop("MASTER_PORT", None)  # world 1 takes a free port
+    os.environ.pop("MASTER_PORT", None)  # world 1: an in-process store, no port
     seed = TrainConfig().seed
     train_set = data.load_mnist("train")
     n_test = len(data.load_mnist("test"))
@@ -654,6 +681,7 @@ def lm_path(device, fa, card_name) -> dict:
             "profile": profile, "f32": f32}
 
 
+COLLECTIVE_WORLDS = (2, 3, 4)
 RING_WORLDS = (2, 3, 4)
 RING_TIMED = (4, 64.0)  # world, MiB of float32 per rank
 RING_SCHEDULE = ("reduce-scatter then all-gather of ceil(numel / n)-element chunks in one "
@@ -719,6 +747,72 @@ def ring_path(checks, flops, metrics, card_name) -> dict:
     return {"launches": int(res["launches"][0]), "timing": timing}
 
 
+def layout(world: int) -> str:
+    """Where ``world`` ranks of ``comm.spmd`` run on this host, and the
+    backend `comm.choose_backend` gives them."""
+    if world > torch.cuda.device_count():
+        return (f"{world} processes on one card (Gloo control group; collectives staged "
+                "through host memory)")
+    return f"{world} processes, one card each (NCCL; nothing staged)"
+
+
+def collectives_path(checks, card: str) -> None:
+    """`ops.checks.check_collectives` at each world, the gather demo as a
+    subprocess, and `ops.checks.check_launch_restart`; each with its
+    seconds."""
+    t0 = time.perf_counter()
+    for world in COLLECTIVE_WORLDS:
+        res = checks.check_collectives(world)
+        print(f"[collectives] world {world}, {layout(world)}: {res['cases']} cases equal to their plain "
+              f"versions (float32 SUM and PRODUCT max |diff| {res['max_abs_err']}, the rest "
+              f"bit for bit) in {res['seconds']} s", flush=True)
+    t1 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", "tpu_dist_torch.demos.gather", "--world", "4"],
+                          cwd=root, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"the gather demo exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = [line for line in proc.stdout.splitlines() if "sum after gather" in line]
+    want = [f"Rank {r} sum after gather: {4.0 if r == 0 else 0.0:.1f} " for r in range(4)]
+    check(len(lines) == 4 and all(line.startswith(w) for line, w in zip(lines, want)),
+          f"the gather demo printed {lines}")
+    for line in lines:
+        print(f"[collectives] demos.gather --world 4: {line}", flush=True)
+    print(f"[collectives] demos.gather --world 4 ({layout(4)}): {time.perf_counter() - t1} s",
+          flush=True)
+    launched = checks.check_launch_restart()
+    print(f"[collectives] comm.launch(world 2, {layout(2)}, file:// store, restarts=1), rank 1 failing "
+          f"attempt 0: (all_reduce of ones, attempt) per rank {launched['results']} in "
+          f"{launched['seconds']} s", flush=True)
+    print(f"[collectives] phase {time.perf_counter() - t0} s on {card}", flush=True)
+
+
+def dp_path(checks, card: str) -> dict:
+    """`ops.checks.check_dp`: the ring kernel on the MNIST training path."""
+    t0 = time.perf_counter()
+    res = checks.check_dp()
+    steps, tensors = res["steps"], res["tensors"]
+    check(tensors == 9, f"{tensors} tensors a step, not 9 (8 gradients and the loss)")
+    shared = res["world"] > torch.cuda.device_count()
+    print(f"[dp] MNIST Trainer, world {res['world']}, {layout(res['world'])} (comm.spmd, "
+          f"TPU_DIST_PALLAS_DENSE=1, synthetic MNIST, global batch 128), {steps} steps "
+          f"with grad_reduce='ring' and {steps} with 'psum' from seed 0: ring launches per "
+          f"rank {res['ring_launches']} (expected {tensors} x {steps}), in the psum run "
+          f"{res['psum_ring_launches']}; fused dense per rank {res['dense_launches']} "
+          f"(2 a step) in each run; losses and final parameters bit for bit equal between the "
+          f"runs and the ranks ({res['elements_differing']} elements differ); losses "
+          f"{res['losses']}", flush=True)
+    note = ("a correctness run, no bandwidth measure: the ranks share one card, so their "
+            "kernels take turns" if shared else "each rank on a card of its own")
+    print(f"[dp] seconds per step, per rank: {json.dumps(res['seconds_per_step'])}; the first "
+          f"step (the ring's workspace grows): {json.dumps(res['first_step_seconds'])}; steps "
+          f"2-{steps} per step: {json.dumps(res['later_seconds_per_step'])} on {card}; {note}; "
+          "control-group collectives after step 1 per rank: 0", flush=True)
+    print(f"[dp] traced ring steps, per rank (torch.profiler; ring_kernel_ms: a launch's mean "
+          f"device time; busy_ms, wall_ms, host_ms: per step): {json.dumps(res['trace'])} on "
+          f"{card}; phase {time.perf_counter() - t0} s", flush=True)
+    return res
+
+
 def build_all(_build) -> None:
     """One nvcc per source, all started together."""
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -756,12 +850,20 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print("[env] TF32 off for matmul and cuDNN (float32 computed in float32)", flush=True)
 
-    if sys.argv[1:] not in ([], ["--lm-f32"]):
-        sys.exit("usage: python3 chip_smoke.py [--lm-f32]")
+    if sys.argv[1:] not in ([], ["--lm-f32"], ["--nccl"]):
+        sys.exit("usage: python3 chip_smoke.py [--lm-f32 | --nccl]")
     if sys.argv[1:] == ["--lm-f32"]:
         os.environ["TPU_DIST_FLASH"] = "1"
         lm_fit(device, fa, flops, card_and_power_limit(), compute_dtype=None,
                steps_per_epoch=4, route=LM_F32_ROUTE)
+        return
+    if sys.argv[1:] == ["--nccl"]:
+        cards = torch.cuda.device_count()
+        check(cards >= max(COLLECTIVE_WORLDS), f"--nccl needs {max(COLLECTIVE_WORLDS)} cards, "
+              f"this host has {cards}")
+        build_all(_build)
+        collectives_path(checks, card_and_power_limit())
+        dp_path(checks, card_and_power_limit())
         return
 
     build_all(_build)
@@ -771,6 +873,8 @@ def main() -> None:
     flash_rows = flash_cases(device, fa, F, flops, checks)
     lm = lm_path(device, fa, card_and_power_limit())  # tokens/s beside the card's power limit
     ring = ring_path(checks, flops, metrics, card_name)
+    collectives_path(checks, card_and_power_limit())
+    dp = dp_path(checks, card_and_power_limit())
 
     step = rows[:2]  # the two launches of one training step
     kernel = {
@@ -821,7 +925,8 @@ def main() -> None:
     kernels.append({
         "name": "ring_all_reduce", "route": "cuda",
         "source": "tpu_dist_torch/ops/csrc/ring.cu",
-        "replaces": "tpu_dist/ops/pallas_ring.py:36", "launches": ring["launches"],
+        "replaces": "tpu_dist/ops/pallas_ring.py:36", "launches": dp["ring_launches"][0],
+        "launches_ring_phase": ring["launches"],
         **{key: timing[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
         "schedule": RING_SCHEDULE,
@@ -829,8 +934,9 @@ def main() -> None:
                 f"{timing['world']}, every rank a process on this one card; max_abs_err: that "
                 "call's output against the plain version, the worst rank; ms: the kernel's "
                 "own time per launch from torch.profiler, the slowest rank; launches: rank 0 "
-                "of the world-4 run of [ring]; library_ms null: NCCL refuses two ranks on "
-                "one device",
+                "of the ring run of [dp], the MNIST Trainer's 20 steps (9 a step); "
+                "launches_ring_phase: rank 0 of the world-4 run of [ring]; library_ms null: "
+                "NCCL refuses two ranks on one device",
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_and_power_limit(), flush=True)

@@ -4,14 +4,18 @@
 is known to run more ranks than it has cards (then Gloo carries control),
 Gloo on the CPU.  `spmd` is held to the JAX package's contract (results
 stacked on a leading world axis) and to its own: a rank that raises makes
-it raise with that rank's traceback, a rank that hangs is killed.
+it raise with that rank's traceback, a rank that hangs is killed, and
+worlds started at once each get their own store (the parent binds it, so
+no world can take another's port).
 """
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 import torch
 
+from tests import torch_collective_workers as collective_workers
 from tests import torch_ring_workers as workers
 from tpu_dist_torch import comm
 
@@ -38,6 +42,35 @@ def test_spmd_stacks_every_rank_on_a_leading_axis():
     assert ids.tolist() == [[0, 3], [1, 3], [2, 3]]
     assert extra["half"].tolist() == [0.0, 0.5, 1.0]
     assert extra["tag"] == ["rank 0", "rank 1", "rank 2"]
+
+
+def test_eight_spmd_worlds_at_once_each_answer_their_own_ranks():
+    """Eight worlds of two ranks started together from a thread pool: every
+    rank sees its own world's size and rank, and an all-reduce that only
+    its own world's ranks can answer (tag * 200 + 1)."""
+    def world(tag):
+        return comm.spmd(collective_workers.concurrent_world, tag, world=2, device="cpu",
+                         timeout=240)
+
+    with ThreadPoolExecutor(8) as pool:
+        outs = list(pool.map(world, range(8), timeout=300))
+    for tag, out in enumerate(outs):
+        assert out.tolist() == [[0, 2, tag * 200 + 1], [1, 2, tag * 200 + 1]], (tag, out)
+
+
+def test_worlds_that_run_no_collective_tear_down_together():
+    """Twelve worlds of three ranks, six at a time, whose function runs no
+    collective: a rank done first waits at the launcher's barrier before it
+    closes its connections, so no peer's Gloo connect finds a socket closed
+    ("connectFullMesh failed ... Connection closed by peer")."""
+    def world(_):
+        return comm.spmd(workers.probe, 0.5, world=3, device="cpu", timeout=240)
+
+    with ThreadPoolExecutor(6) as pool:
+        outs = list(pool.map(world, range(12), timeout=300))
+    for ids, extra in outs:
+        assert ids.tolist() == [[0, 3], [1, 3], [2, 3]]
+        assert extra["tag"] == ["rank 0", "rank 1", "rank 2"]
 
 
 def test_spmd_raises_with_the_failing_ranks_traceback():

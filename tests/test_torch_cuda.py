@@ -428,3 +428,35 @@ def test_ring_wrapper_refuses_what_the_kernel_cannot_take(card):
         pallas_ring.ring_all_reduce_pallas(torch.zeros(8, device=card, dtype=torch.float64))
     with pytest.raises(RuntimeError, match="process group"):
         pallas_ring.ring_all_reduce_pallas(torch.zeros(8, device=card))
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_ring_kernel_below_one_vector_a_chunk(card, world):
+    """1, 10 and 20 elements (the loss and the ConvNet's smallest biases on
+    the ``grad_reduce="ring"`` path) in every dtype: bit for bit equal to
+    `ring_all_reduce_reference` on every rank."""
+    checks.check_ring_small(world)
+
+
+def test_trainer_ring_matches_psum(card):
+    """The MNIST Trainer at world 2 on the card, 3 steps under each
+    reduction, so ``average_gradients(backend="ring")`` against
+    ``backend="psum"`` on the ConvNet's gradients and the loss: 9 ring
+    launches a step in the ring run, none in the psum run, no control-group
+    collective after the first step, and the same bits."""
+    checks.check_dp(steps=3)
+
+
+# ---------------------------------------------------------------- comm
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_collectives_on_the_card(card, world):
+    """Every collective on CUDA tensors of ranks that share the card (Gloo,
+    staged through host memory) against its plain version; outputs stay on
+    the card."""
+    checks.check_collectives(world)
+
+
+def test_launch_restarts_on_the_card(card):
+    checks.check_launch_restart()

@@ -30,6 +30,8 @@ def test_importing_the_port_loads_neither_jax_nor_tpu_dist():
         "import tpu_dist_torch.ops.pallas_ring, tpu_dist_torch.ops.checks\n"
         "import tpu_dist_torch.train.metrics\n"
         "import tpu_dist_torch.demos.ptp, tpu_dist_torch.demos.allreduce\n"
+        "import tpu_dist_torch.demos.gather, tpu_dist_torch.comm.launch, tpu_dist_torch.run\n"
+        "import tpu_dist_torch.resilience.retry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpu_dist'))\n"
         "assert not bad, bad\n"
     )
@@ -96,4 +98,22 @@ def test_cpu_ring_never_touches_the_build(monkeypatch):
     before = pallas_ring.ring_all_reduce_pallas.launches
     x = torch.arange(6.0).reshape(2, 3)
     torch.testing.assert_close(pallas_ring.ring_all_reduce_pallas(x), x)
+    assert pallas_ring.ring_all_reduce_pallas.launches == before
+
+
+def test_cpu_ring_gradient_reduction_never_touches_the_build(monkeypatch):
+    """``average_gradients(backend="ring")`` on CPU tensors takes the plain
+    ring (a world of one here): no build, no launch counted, each tensor
+    its own mean."""
+    from tpu_dist_torch.parallel import average_gradients
+
+    def refuse(name):
+        raise AssertionError(f"CPU ring tried to build {name}")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    before = pallas_ring.ring_all_reduce_pallas.launches
+    grads = [torch.arange(6.0).reshape(2, 3), torch.tensor([0.5])]
+    want = [g.clone() for g in grads]
+    average_gradients(grads, backend="ring")
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
     assert pallas_ring.ring_all_reduce_pallas.launches == before

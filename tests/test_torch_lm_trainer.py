@@ -13,7 +13,6 @@ gradients themselves are held to 5e-5 in test_torch_transformer_lm.py).
 """
 
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +27,7 @@ from tpu_dist import comm as jax_comm
 from tpu_dist import models as jax_models
 from tpu_dist import train as jax_train
 from tpu_dist_torch import interop, models
+from tpu_dist_torch.comm import init as comm_init
 from tpu_dist_torch.train import (
     LMTrainConfig,
     LMTrainer,
@@ -226,20 +226,15 @@ torch.distributed.destroy_process_group()
 """
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def test_gloo_world_two_matches_world_one(tmp_path, monkeypatch):
     """Two processes, 2 windows each per step, 2 steps (flash path at
     S = 128), against one process on the same global batches; rank 1 built
     its model from another seed, and the broadcast from rank 0 at
     construction makes it rank 0's."""
     monkeypatch.setenv("TPU_DIST_FLASH", "1")
-    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
-               WORLD_SIZE="2", PYTHONPATH=str(REPO))
+    store = comm_init.host_store()  # held here, so no other process can take its port
+    env = dict(os.environ, **comm_init.launcher_env(store, "localhost", 2),
+               PYTHONPATH=str(REPO))
     procs = [
         subprocess.Popen([sys.executable, "-c", _WORKER, str(tmp_path / f"rank{r}.pt")],
                          env=dict(env, RANK=str(r)), cwd=REPO)

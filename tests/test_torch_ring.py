@@ -188,6 +188,12 @@ def test_known_answer_send_and_receive_zeros():
     (7, 4, 4, 128), (3, 4, 4, 128), (1, 2, 2, 128), (1_000_003, 3, 4, 128),
     (1_000_003, 4, 2, 128), (4096, 2, 4, 128), (4000, 2, 4, 128), (65_536, 3, 4, 64),
     (16_777_216, 4, 4, 128), (1001, 3, 2, 7), (123, 4, 2, 3), (33, 2, 4, 1),
+    # below one 16-byte vector a chunk: the loss, fc2's bias, conv2's
+    (1, 3, 4, 128), (1, 4, 4, 128), (10, 2, 4, 128), (10, 4, 2, 128), (20, 3, 4, 128),
+    (20, 4, 4, 128),
+    # every other tensor of the ConvNet's step under grad_reduce="ring"
+    (250, 2, 4, 128), (5000, 2, 4, 128), (16_000, 2, 4, 128), (50, 2, 4, 128),
+    (500, 2, 4, 128),
 ])
 def test_kernel_cut_covers_every_element_once(numel, n, item, blocks):
     """The Python mirror of the kernel's cut: the chunks are the chunked

@@ -9,7 +9,6 @@ global batches.
 """
 
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -19,12 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_collective_workers as workers
 from tpu_dist import comm as jax_comm
 from tpu_dist import data as jax_data
 from tpu_dist import models as jax_models
 from tpu_dist import parallel as jax_parallel
 from tpu_dist import train as jax_train
-from tpu_dist_torch import data, interop, models
+from tpu_dist_torch import comm, data, interop, models
+from tpu_dist_torch.comm import init as comm_init
 from tpu_dist_torch.train import TrainConfig, Trainer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -151,20 +152,15 @@ torch.distributed.destroy_process_group()
 """
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def test_gloo_world_two_matches_world_one(tmp_path, monkeypatch):
     """Two processes, 64 samples each per step, 2 steps, against one
     process stepping on the same 128-sample global batches; rank 1 built
     its model from another seed, and the Trainer's broadcast from rank 0
     makes it rank 0's."""
     monkeypatch.setenv("TPU_DIST_PALLAS_DENSE", "1")
-    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
-               WORLD_SIZE="2", PYTHONPATH=str(REPO))
+    store = comm_init.host_store()  # held here, so no other process can take its port
+    env = dict(os.environ, **comm_init.launcher_env(store, "localhost", 2),
+               PYTHONPATH=str(REPO))
     procs = [
         subprocess.Popen(
             [sys.executable, "-c", _WORKER, str(tmp_path / f"rank{r}.pt")],
@@ -196,3 +192,48 @@ def test_gloo_world_two_matches_world_one(tmp_path, monkeypatch):
         np.testing.assert_allclose(rank_out["loss"], np.mean(losses), **TOL)
         for name, want in single.model.state_dict().items():
             torch.testing.assert_close(rank_out["state"][name], want, atol=1e-5, rtol=0)
+
+
+def test_ring_reduce_at_world_two_matches_jax_trainer_and_psum():
+    """``grad_reduce="ring"``: the port's Trainer at Gloo world 2 (the
+    chunked ring per tensor, the loss included) against the JAX Trainer's
+    ring on a 2-device CPU mesh over 3 steps, same params and batches,
+    within the tolerance of test_three_steps_match_jax_trainer; and the
+    port's ring run equal to its psum run bit for bit (at world 2 each sum
+    is a + b, and both paths divide by 2)."""
+    N_LAYERS = len(models.mnist_net())
+    jax_model = jax_models.mnist_net()
+    for i in DROPOUT_LAYERS:
+        jax_model.layers[i].rate = 0.0
+    mesh = jax_comm.make_mesh(2, ("data",), platform="cpu")
+    ref = jax_train.Trainer(jax_model, jax_models.IN_SHAPE, mesh,
+                            jax_train.TrainConfig(epochs=1, grad_reduce="ring", log=_quiet))
+    state = interop.params_from_jax(jax.device_get(ref.params))
+    ds = jax_data.synthetic_mnist(384, seed=7)
+    batches = list(jax_data.DistributedLoader(ds, 1, 128, seed=1234).epoch(0))
+    assert len(batches) == 3
+    params, model_state, opt_state = ref.params, ref.model_state, ref.opt_state
+    want_losses = []
+    for x, y in batches:
+        params, model_state, opt_state, loss, _ = ref.step(
+            params, model_state, opt_state,
+            jax_parallel.shard_batch((x, y), mesh), jax.random.key(0))
+        want_losses.append(float(loss))
+
+    out = comm.spmd(workers.trainer_steps, state, batches, ("ring", "psum"), world=2,
+                    device="cpu", timeout=240)
+    ring, psum = out["ring"], out["psum"]
+    for r in range(2):
+        np.testing.assert_allclose(ring["losses"][r].numpy(), want_losses, **TOL)
+        _assert_trees_close(
+            interop.params_to_jax({k: v[r] for k, v in ring["params"].items()}, N_LAYERS),
+            jax.device_get(params))
+        _assert_trees_close(
+            interop.params_to_jax({k: v[r] for k, v in ring["momentum"].items()}, N_LAYERS),
+            jax.device_get(opt_state)["buf"])
+    for what in ("losses", "params", "momentum"):
+        got, want = ring[what], psum[what]
+        for key in (got if isinstance(got, dict) else [None]):
+            a, b = (got, want) if key is None else (got[key], want[key])
+            assert torch.equal(a, b), (what, key)
+            assert torch.equal(a[0], a[1]), (what, key)  # both ranks hold the same bits

@@ -7,32 +7,20 @@ spawns ``world`` processes on this host, each joins the process group
 (`comm.init_process_group`, told that every rank runs here, so ranks that
 share a card take the Gloo control group), runs ``fn(*args)`` and sends
 its result back; the parent stacks the results on a leading ``(world,)``
-axis, as the JAX `spmd` does.
+axis, as the JAX `spmd` does.  The processes are a `comm.launch` gang
+(`launch.run_gang`, one attempt): the parent hosts the world's store on a
+port the system picks as it binds it, and keeps it until the ranks are
+done, so worlds started at once cannot take each other's port.
 """
 
 from __future__ import annotations
 
-import io
-import os
-import queue
-import time
-import traceback
+import functools
 from typing import Any, Callable
 
 import torch
-import torch.multiprocessing as mp
 
-from tpu_dist_torch.comm import init as _init
-
-_POLL_S = 0.2
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, t) for t in tree)
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+from tpu_dist_torch.comm.launch import run_gang
 
 
 def _stack(results: list) -> Any:
@@ -46,23 +34,8 @@ def _stack(results: list) -> Any:
     return list(results)  # strings and other leaves: one per rank
 
 
-def _to_host(x):
-    return x.detach().cpu() if isinstance(x, torch.Tensor) else x
-
-
-def _rank_main(rank, world, port, device_type, fn, args, results) -> None:
-    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(world),
-                      RANK=str(rank), LOCAL_RANK=str(rank))
-    try:
-        _init.init_process_group(torch.device(device_type), local_world=world)
-        out = io.BytesIO()
-        torch.save(_tree_map(_to_host, fn(*args)), out)  # sent by value
-        _init.destroy_process_group()
-    except Exception:  # every failure goes back to the parent
-        # no teardown: the other ranks may be blocked, and the parent kills them
-        results.put((rank, False, traceback.format_exc()))
-        return
-    results.put((rank, True, out.getvalue()))
+def _call(fn, args, rank: int, world: int) -> Any:
+    return fn(*args)
 
 
 def spmd(
@@ -81,52 +54,16 @@ def spmd(
     ``fn`` and ``args`` must pickle (a module-level function).  If a rank
     raises, `spmd` raises with that rank's traceback; if the ranks have not
     all answered after ``timeout`` seconds, every rank still running is
-    killed and `spmd` raises."""
+    killed and `spmd` raises TimeoutError."""
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
     if device not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("spmd(device='cuda') needs a CUDA device; pass device='cpu'")
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    port = _init._free_port()
-    procs = [
-        ctx.Process(target=_rank_main, args=(r, world, port, device, fn, args, results),
-                    daemon=True)
-        for r in range(world)
-    ]
-    for p in procs:
-        p.start()
-    answers: dict[int, Any] = {}
-    deadline = time.monotonic() + timeout
-    dead_since: dict[int, float] = {}
-    try:
-        while len(answers) < world:
-            try:
-                rank, ok, value = results.get(timeout=_POLL_S)
-            except queue.Empty:
-                now = time.monotonic()
-                for r, p in enumerate(procs):
-                    # a result may still be in the pipe just after its rank exits
-                    if r not in answers and p.exitcode is not None and \
-                            now - dead_since.setdefault(r, now) > 2.0:
-                        raise RuntimeError(
-                            f"spmd: rank {r} exited with code {p.exitcode} without a result")
-                if now > deadline:
-                    missing = [r for r in range(world) if r not in answers]
-                    raise TimeoutError(
-                        f"spmd: rank(s) {missing} of {world} did not answer within "
-                        f"{timeout} s; killed")
-                continue
-            if not ok:
-                raise RuntimeError(f"spmd: rank {rank} of {world} raised:\n{value}")
-            answers[rank] = torch.load(io.BytesIO(value), weights_only=False)
-    finally:
-        for p in procs:
-            p.join(timeout=30 if len(answers) == world else 0)
-            if p.is_alive():
-                p.kill()
-                p.join()
-        results.close()
-    return _stack([answers[r] for r in range(world)])
+    results, failure = run_gang(functools.partial(_call, fn, args), world, device=device,
+                                timeout=timeout)
+    if failure is None:
+        return _stack(results)
+    error = TimeoutError if failure.kind == "timeout" else RuntimeError
+    raise error(f"spmd: {failure}")

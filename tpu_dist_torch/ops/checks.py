@@ -23,7 +23,16 @@ and by ``chip_smoke.py``:
   the call raise within the kernel's bound, on both ranks;
 - `check_ring_mismatch`: ranks that pass another numel or dtype, or that
   disagree about growing the workspace, raise on both ranks within the
-  bound.
+  bound;
+- `check_dp`: the MNIST Trainer at world 2 on the card under
+  ``grad_reduce="ring"`` (`average_gradients` takes the ring kernel once
+  per gradient and once for the loss each step) equal bit for bit to
+  ``"psum"``, with no control-group collective after the first step, and
+  a traced run of a few more ring steps (`trace_dp_steps`);
+- `check_collectives`: every collective of `comm` on ranks sharing the card
+  against its plain version on the stacked inputs;
+- `check_launch_restart`: `comm.launch` through a ``file://`` store returns
+  on attempt 1 after rank 1 fails attempt 0.
 
 Each raises AssertionError when a check fails (also under ``python -O``)
 and returns what it measured.  Nothing here runs without a card.
@@ -174,7 +183,9 @@ RING_CASES = [
 ]
 RING_BACK_TO_BACK = 100
 RING_BACK_TO_BACK_ELEMENTS = 65_536
-RING_SIZES = [1_000, 100_000, 3_000_000, 50_000, 7, 4_000_000]  # growing, then shrinking
+# growing, then shrinking (1, 10 and 20: the loss and the ConvNet's two
+# smallest biases, each under one 16-byte vector a chunk), then growing again
+RING_SIZES = [1_000, 100_000, 3_000_000, 50_000, 7, 1, 10, 20, 4_000_000]
 
 
 def ring_payload(shape, dtype, rank: int, seed: int, device) -> torch.Tensor:
@@ -367,6 +378,35 @@ def check_ring(world: int, *, seed: int = 0, time_mib: float = 0.0, iters: int =
     return res
 
 
+RING_SMALL = (1, 10, 20)  # the loss and the ConvNet's two smallest biases
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
+
+
+def _ring_small_rank(seed: int) -> dict:
+    device = torch.device("cuda", torch.cuda.current_device())
+    n, r = comm.world_size(), comm.rank()
+    kernel, reference = pallas_ring.ring_all_reduce_pallas, pallas_ring.ring_all_reduce_reference
+    differing = {}
+    for numel in RING_SMALL:
+        for dtype in _DTYPES:
+            xs = torch.stack([ring_payload(numel, dtype, q, seed, device) for q in range(n)])
+            out = kernel(xs[r])
+            pallas_ring.synchronize()
+            differing[f"{numel} {str(dtype)[6:]}"] = _bits_differing(out, reference(xs)[r])
+    return differing
+
+
+def check_ring_small(world: int, seed: int = 0) -> dict:
+    """The ring kernel at `RING_SMALL` elements, where a chunk holds less
+    than one 16-byte vector (or nothing), in every dtype: bit for bit equal
+    to the plain version on every rank."""
+    res = comm.spmd(_ring_small_rank, seed, world=world, device="cuda", timeout=300)
+    for label, counts in res.items():
+        _require(counts.tolist() == [0] * world,
+                 f"world {world}, {label}: elements that differ per rank {counts.tolist()}")
+    return {label: counts.tolist() for label, counts in res.items()}
+
+
 def _stuck_rank(timeout: float) -> dict:
     """Rank 1 delays its stream past the bound before its second call, so
     rank 0's kernel waits for a neighbour that does not come.  Sets the
@@ -464,3 +504,320 @@ def check_ring_mismatch(timeout: float = 2.0) -> dict:
                      f"{kind}: messages {res['message']}")
         out[kind] = {"seconds": res["seconds"].tolist(), "messages": res["message"]}
     return out
+
+
+# ----------------------------------------------------------- the collectives
+
+COLLECTIVE_OPS = ("SUM", "PRODUCT", "MAX", "MIN")
+
+
+def collectives_group(n: int) -> tuple[int, ...]:
+    """The sub-group `check_collectives` builds: {0, 2}, or rank 1 alone at
+    world 2."""
+    return (0, 2) if n > 2 else (1,)
+
+
+def collective_cases(n: int, seed: int = 0) -> dict:
+    """name -> (function, stacked inputs (n, ...) on the CPU, keyword
+    arguments; ``group`` True for `collectives_group`)."""
+    g = torch.Generator().manual_seed(1000 * seed + n)
+
+    def f32(*shape):
+        return torch.randn((n, *shape), generator=g) * 2
+
+    def i32(*shape):  # small: an int32 product of n of them stays exact
+        return torch.randint(-9, 10, (n, *shape), generator=g, dtype=torch.int32)
+
+    cases = {}
+    for op in COLLECTIVE_OPS:
+        for label, make in (("f32", f32), ("i32", i32)):
+            cases[f"all_reduce_{op}_{label}"] = ("all_reduce", make(1000), {"op": op})
+            cases[f"all_reduce_{op}_{label}_group"] = ("all_reduce", make(1000),
+                                                      {"op": op, "group": True})
+    cases["reduce_SUM_to_last"] = ("reduce", f32(1000), {"op": "SUM", "dst": n - 1})
+    cases["reduce_MAX_i32_to_first"] = ("reduce", i32(1000), {"op": "MAX", "dst": 0})
+    cases["broadcast_from_last"] = ("broadcast", f32(1000), {"src": n - 1})
+    cases["broadcast_i32_group"] = ("broadcast", i32(1000),
+                                    {"src": collectives_group(n)[0], "group": True})
+    cases["all_gather"] = ("all_gather", f32(333), {})
+    cases["gather_ones_to_first"] = ("gather", torch.ones(n, 1), {"dst": 0})
+    cases["scatter_from_first"] = ("scatter", f32(n, 77), {"src": 0})
+    cases["reduce_scatter_SUM"] = ("reduce_scatter", f32(4 * n, 5), {"op": "SUM"})
+    cases["all_to_all"] = ("all_to_all", f32(2 * n, 3), {"split_axis": 0, "concat_axis": 0})
+    return cases
+
+
+def collective_expected(fn: str, xs: torch.Tensor, kw: dict) -> torch.Tensor:
+    """Every rank's output, stacked, from the stacked inputs: the plain
+    version of the case."""
+    n = xs.shape[0]
+    reduce_ = {"SUM": lambda t: t.sum(0, dtype=t.dtype),
+               "PRODUCT": lambda t: t.prod(0, dtype=t.dtype),
+               "MAX": lambda t: t.amax(0), "MIN": lambda t: t.amin(0)}.get(kw.get("op"))
+    members = list(collectives_group(n)) if kw.get("group") else list(range(n))
+    out = []
+    for r in range(n):
+        if fn == "all_reduce":
+            out.append(reduce_(xs[members]) if r in members else xs[r])
+        elif fn == "reduce":
+            out.append(reduce_(xs) if r == kw["dst"] else xs[r])
+        elif fn == "broadcast":
+            out.append(xs[kw["src"]] if r in members else xs[r])
+        elif fn == "all_gather":
+            out.append(xs)
+        elif fn == "gather":
+            out.append(xs if r == kw["dst"] else torch.zeros_like(xs))
+        elif fn == "scatter":
+            out.append(xs[kw["src"]][r])
+        elif fn == "reduce_scatter":
+            piece = xs.shape[1] // n
+            out.append(reduce_(xs)[r * piece:(r + 1) * piece])
+        else:  # all_to_all, split and concatenated along axis 0
+            piece = xs.shape[1] // n
+            out.append(torch.cat([xs[i][r * piece:(r + 1) * piece] for i in range(n)]))
+    return torch.stack(out)
+
+
+def _collectives_rank(seed: int, device_type: str) -> dict:
+    """One rank of `check_collectives`: the group (every rank builds it),
+    then every case on this rank's input on the device; an output that is
+    not on that device raises."""
+    device = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+              else torch.device("cpu"))
+    n, r = comm.world_size(), comm.rank()
+    group = comm.new_group(collectives_group(n))
+    out = {}
+    for name, (fn, xs, kw) in collective_cases(n, seed).items():
+        kw = dict(kw)
+        x = xs[r].to(device)
+        if "op" in kw:
+            kw["op"] = comm.ReduceOp[kw["op"]]
+        if kw.pop("group", False):
+            kw["group"] = group
+        root = kw.pop("dst", kw.pop("src", None))
+        args = (x,) if root is None else (x, root)
+        y = getattr(comm, fn)(*args, **kw)
+        _require(y.device == device, f"{name}: output on {y.device}, not {device}")
+        out[name] = y
+    return out
+
+
+def check_collectives(world: int, seed: int = 0, device: str = "cuda") -> dict:
+    """Every collective of `comm` on ``world`` ranks sharing the card (the
+    Gloo control group, so every call stages through host memory), against
+    its plain version on the stacked inputs: int32 and data movement bit for
+    bit, float32 SUM and PRODUCT within rtol and atol 1e-5 (Gloo adds in
+    another order).  Returns the cases checked and the largest difference.
+    ``device="cpu"`` runs the same check on CPU ranks."""
+    t0 = time.perf_counter()
+    res = comm.spmd(_collectives_rank, seed, device, world=world, device=device, timeout=300)
+    worst = 0.0
+    for name, (fn, xs, kw) in collective_cases(world, seed).items():
+        got, want = res[name], collective_expected(fn, xs, kw)
+        _require(got.shape == want.shape and got.dtype == want.dtype,
+                 f"world {world}, {name}: {tuple(got.shape)} {got.dtype}, not "
+                 f"{tuple(want.shape)} {want.dtype}")
+        if want.is_floating_point() and kw.get("op") in ("SUM", "PRODUCT"):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            worst = max(worst, float((got - want).abs().max()))
+        else:
+            _require(torch.equal(got, want), f"world {world}, {name}: differs from the plain "
+                     "version")
+    return {"world": world, "cases": len(res), "max_abs_err": worst,
+            "seconds": time.perf_counter() - t0}
+
+
+# ------------------------------------------- the ring on the training path
+
+DP_WORLD, DP_STEPS, DP_BATCH, DP_TRACE_STEPS = 2, 20, 128, 3
+
+
+def _dp_rank(steps: int, seed: int) -> dict:
+    """One rank of `check_dp`: the MNIST Trainer on the card with the fused
+    dense kernel, ``steps`` steps under each gradient reduction from the
+    same seed; each run's losses, final parameters, launch counts (set to 0
+    just before the run, read just after) and seconds per step."""
+    import os
+
+    from tpu_dist_torch import data, models
+    from tpu_dist_torch.ops import fused_dense
+    from tpu_dist_torch.train import TrainConfig, Trainer
+
+    os.environ["TPU_DIST_PALLAS_DENSE"] = "1"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # the two runs must compute the same bits
+    torch.backends.cudnn.benchmark = False
+    device = torch.device("cuda", torch.cuda.current_device())
+    n, r = comm.world_size(), comm.rank()
+    loader = data.DistributedLoader(data.synthetic_mnist(DP_BATCH * steps, seed=seed), n,
+                                    DP_BATCH, rank=r)
+    batches = [(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+               for x, y in loader.epoch(0)]
+    _require(len(batches) == steps, f"{len(batches)} batches, not {steps}")
+    kernel = pallas_ring.ring_all_reduce_pallas
+    ws = pallas_ring.workspace(device)
+    out, trainers = {}, {}
+    for backend in ("ring", "psum"):
+        net = models.mnist_net(torch.Generator().manual_seed(seed))
+        trainer = trainers[backend] = Trainer(
+            net, TrainConfig(grad_reduce=backend, log=lambda line: None), device=device)
+        torch.cuda.synchronize()
+        comm.barrier()
+        kernel.launches = fused_dense.launches = 0
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(*batches[0])]
+        pallas_ring.synchronize()
+        first = time.perf_counter() - t0
+        control = ws.collectives  # the workspace grows in the first step at most
+        losses += [trainer.train_step(x, y) for x, y in batches[1:]]
+        control = ws.collectives - control
+        pallas_ring.synchronize()  # raises if a ring kernel gave up
+        seconds = time.perf_counter() - t0
+        out[backend] = {"losses": torch.stack(losses),
+                        "params": {k: v.clone() for k, v in trainer.model.state_dict().items()},
+                        "ring_launches": kernel.launches, "dense_launches": fused_dense.launches,
+                        "tensors": len(trainer.params) + 1,  # the gradients and the loss
+                        "control_after_step_1": control,
+                        "first_step_seconds": first,
+                        "seconds_per_step": seconds / steps,
+                        "later_seconds_per_step": (seconds - first) / max(steps - 1, 1)}
+    out["trace"] = trace_dp_steps(trainers["ring"].train_step,
+                                  [batches[i % steps] for i in range(DP_TRACE_STEPS + 1)])
+    return out
+
+
+def trace_dp_steps(step, batches) -> dict:
+    """``step(x, y)`` on each of ``batches`` under ``torch.profiler``, the
+    first as a warm-up that takes the profiler's start-up, the others
+    traced after a barrier with the group: per traced step, this rank's
+    ring launches, their mean device time (``ring_kernel_ms``), the device
+    time of all its kernels (``busy_ms``, the union of their intervals),
+    the step's wall time to the end of its device work (``wall_ms``) and
+    host time to enqueue it (``host_ms``), the card's idle share for this
+    rank (1 - busy / wall), and the control-group collectives per ring
+    call (``control_per_call``, 0 once the workspace fits)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    kernel = pallas_ring.ring_all_reduce_pallas
+    ws = pallas_ring.workspace(torch.device("cuda", torch.cuda.current_device()))
+    traced = len(batches) - 1
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=traced, repeat=1)) as prof:
+        step(*batches[0])
+        pallas_ring.synchronize()
+        comm.barrier()
+        prof.step()
+        launches, collectives = kernel.launches, ws.collectives
+        t0 = time.perf_counter()
+        for i, (x, y) in enumerate(batches[1:], 1):
+            step(x, y)
+            if i == traced:  # the trace ends at this prof.step(), after the device work
+                host_s = time.perf_counter() - t0
+                pallas_ring.synchronize()
+                wall_s = time.perf_counter() - t0
+            prof.step()
+        launches, collectives = kernel.launches - launches, ws.collectives - collectives
+    comm.barrier()
+    device = sorted(((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                     if e.device_type == DeviceType.CUDA), key=lambda e: e[0])
+    ring = [end - start for start, end, name in device if "ring_kernel" in name]
+    _require(len(ring) == launches, f"the trace holds {len(ring)} ring launches, not the "
+             f"{launches} the wrapper counted")
+    busy_us, reach = 0.0, float("-inf")
+    for start, end, _ in device:  # the union of the intervals
+        busy_us += max(end - max(start, reach), 0)
+        reach = max(reach, end)
+    return {"steps": traced, "ring_launches": launches,
+            "ring_kernel_ms": sum(ring) / max(len(ring), 1) / 1e3,
+            "busy_ms": busy_us / traced / 1e3, "wall_ms": wall_s / traced * 1e3,
+            "host_ms": host_s / traced * 1e3, "idle_share": 1 - busy_us / 1e6 / wall_s,
+            "control_per_call": collectives / max(launches, 1)}
+
+
+def check_dp(world: int = DP_WORLD, steps: int = DP_STEPS, seed: int = 0) -> dict:
+    """The MNIST Trainer at ``world`` ranks on the card (ranks that share
+    one card, or one card each where the host has enough) under
+    ``grad_reduce="ring"`` and ``"psum"``: per rank, the ring kernel
+    launched once per gradient and once for the loss each step in the ring
+    run and never in the psum run, no control-group collective after the
+    first step, the fused dense kernel twice a step in both; every loss and
+    final parameter the same bits in both runs (at world 2 each sum is
+    a + b and both divide by 2) and on every rank; the losses finite.  Then
+    `trace_dp_steps` over ``DP_TRACE_STEPS`` more ring steps, which must
+    hold one ring launch per tensor and no control-group collective."""
+    res = comm.spmd(_dp_rank, steps, seed, world=world, device="cuda", timeout=600)
+    trace = res.pop("trace")
+    ring, psum = res["ring"], res["psum"]
+    tensors = int(ring["tensors"][0])
+    _require(ring["control_after_step_1"].tolist() == [0] * world,
+             f"ring run: control-group collectives after step 1 per rank "
+             f"{ring['control_after_step_1'].tolist()}, not 0")
+    _require(trace["ring_launches"].tolist() == [tensors * DP_TRACE_STEPS] * world,
+             f"traced steps: ring launches per rank {trace['ring_launches'].tolist()}")
+    _require(trace["control_per_call"].tolist() == [0.0] * world,
+             f"traced steps: control-group collectives per call {trace['control_per_call']}")
+    _require(ring["ring_launches"].tolist() == [tensors * steps] * world,
+             f"ring run: ring launches per rank {ring['ring_launches'].tolist()}, not "
+             f"{tensors} x {steps}")
+    _require(psum["ring_launches"].tolist() == [0] * world,
+             f"psum run: ring launches per rank {psum['ring_launches'].tolist()}")
+    for label, run in res.items():
+        _require(run["dense_launches"].tolist() == [2 * steps] * world,
+                 f"{label} run: fused dense launches {run['dense_launches'].tolist()}, "
+                 f"not 2 x {steps}")
+    _require(bool(torch.isfinite(ring["losses"]).all()), "non-finite loss")
+    pairs = [("losses", ring["losses"], psum["losses"])] + [
+        (name, ring["params"][name], psum["params"][name]) for name in ring["params"]]
+    differing = {}
+    for name, a, b in pairs:
+        differing[name] = _bits_differing(a, b)
+        _require(differing[name] == 0, f"{name}: ring and psum runs differ in "
+                 f"{differing[name]} elements")
+        _require(all(torch.equal(a[q], a[0]) for q in range(world)),
+                 f"{name}: the ranks hold different bits")
+    return {"world": world, "steps": steps, "tensors": tensors,
+            "ring_launches": ring["ring_launches"].tolist(),
+            "psum_ring_launches": psum["ring_launches"].tolist(),
+            "dense_launches": ring["dense_launches"].tolist(),
+            "seconds_per_step": {label: run["seconds_per_step"].tolist()
+                                 for label, run in res.items()},
+            "first_step_seconds": {label: run["first_step_seconds"].tolist()
+                                   for label, run in res.items()},
+            "later_seconds_per_step": {label: run["later_seconds_per_step"].tolist()
+                                       for label, run in res.items()},
+            "losses": ring["losses"][0].tolist(),
+            "elements_differing": sum(differing.values()),
+            "trace": {k: v.tolist() for k, v in trace.items()}}
+
+
+# ------------------------------------------------------------ the launcher
+
+
+def _launch_rank(rank: int, world: int) -> tuple[float, int]:
+    """Rank 1 of attempt 0 raises; otherwise an all-reduce of ones on the
+    card, and the attempt."""
+    import os
+
+    from tpu_dist_torch.comm import init
+
+    attempt = int(os.environ[init.ATTEMPT])
+    if rank == 1 and attempt == 0:
+        raise RuntimeError("rank 1 fails attempt 0 on purpose")
+    device = torch.device("cuda", torch.cuda.current_device())
+    return float(comm.all_reduce(torch.ones(1, device=device)).item()), attempt
+
+
+def check_launch_restart(world: int = 2) -> dict:
+    """`comm.launch` of ``world`` ranks on the card through a ``file://``
+    store with ``restarts=1``: rank 1 fails attempt 0, and the gang's
+    attempt 1 returns the all-reduce of ones on every rank."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = comm.launch(_launch_rank, world, device="cuda", init_method=f"file://{tmp}/rdzv",
+                          restarts=1, timeout=300)
+    _require(out == [(float(world), 1)] * world, f"launch returned {out}")
+    return {"results": out, "seconds": time.perf_counter() - t0}

@@ -5,8 +5,12 @@ The JAX package averages gradients with one ``pmean`` over the parameter
 tree, which XLA fuses into few AllReduces, and replicates one copy of the
 parameters over the mesh at start.  Here the tensors are packed into one
 flat bucket per dtype and moved with a single collective: one
-``all_reduce`` per step for the gradients, one ``broadcast`` from rank 0
-for the parameters and buffers, however many tensors the model has.
+``all_reduce`` per step for the gradients (``backend="psum"``), one
+``broadcast`` from rank 0 for the parameters and buffers, however many
+tensors the model has.  ``backend="ring"`` takes the hand-rolled ring
+instead, one call per tensor, as the JAX package maps its ring over each
+leaf: the ring kernel on the card (`ops.ring_all_reduce_pallas`), the
+chunked ring on the CPU.
 """
 
 from __future__ import annotations
@@ -14,9 +18,8 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
-import torch.distributed as dist
 
-from tpu_dist_torch.comm.collectives import ReduceOp, all_reduce
+from tpu_dist_torch.comm.collectives import ReduceOp, all_reduce, broadcast, world_size
 
 
 def _through_buckets(
@@ -38,11 +41,37 @@ def _through_buckets(
                 offset += n
 
 
-def average_gradients(tensors: Sequence[torch.Tensor]) -> None:
-    """Replace each tensor, in place, by its mean over all ranks.  The
-    tensors share one device and dtype (gradients, and the step's loss
-    riding in the same bucket)."""
-    _through_buckets(tensors, lambda flat: all_reduce(flat, ReduceOp.AVG))
+def check_backend(backend: str) -> None:
+    """Raise unless `average_gradients` takes ``backend``."""
+    if backend in ("int8", "fp8", "bf16"):
+        raise NotImplementedError(
+            f"grad-reduce backend {backend!r} is not ported yet: it comes with "
+            "comm/compress.py, ROADMAP queue 1 item 10")
+    if backend not in ("psum", "ring"):
+        raise ValueError(f"unknown grad-reduce backend {backend!r}")
+
+
+def average_gradients(tensors: Sequence[torch.Tensor], *, backend: str = "psum") -> None:
+    """Replace each tensor, in place, by its mean over all ranks
+    (train_dist.py:94-100): gradients, and the step's loss riding along.
+
+    ``backend``: ``"psum"``, one flat all-reduce per dtype (the default);
+    ``"ring"``, ``ring_all_reduce_pallas(t) / n`` for each tensor, which
+    on a CUDA tensor is one launch of the ring kernel (enqueued on the
+    current stream, no host sync) and on a CPU tensor the chunked ring.
+    The compressed backends ``"int8"``, ``"fp8"`` and ``"bf16"`` come with
+    `comm/compress.py` (ROADMAP queue 1, item 10)."""
+    check_backend(backend)
+    if backend == "psum":
+        _through_buckets(tensors, lambda flat: all_reduce(flat, ReduceOp.AVG))
+        return
+    # imported here: ops.pallas_ring imports this package's ring module
+    from tpu_dist_torch.ops.pallas_ring import ring_all_reduce_pallas
+
+    n = world_size()
+    with torch.no_grad():
+        for t in tensors:
+            t.copy_(ring_all_reduce_pallas(t) / n)
 
 
 def broadcast_parameters(module: torch.nn.Module, src: int = 0) -> None:
@@ -50,4 +79,4 @@ def broadcast_parameters(module: torch.nn.Module, src: int = 0) -> None:
     rank ``src``'s: replicas start equal however each rank built its
     module (the JAX trainers replicate one copy over the mesh)."""
     tensors = list(module.parameters()) + list(module.buffers())
-    _through_buckets(tensors, lambda flat: dist.broadcast(flat, src))
+    _through_buckets(tensors, lambda flat: broadcast(flat, src))

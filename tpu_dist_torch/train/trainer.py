@@ -1,9 +1,10 @@
 """The training loop: ``run(rank, size)`` of the reference, one process per
 rank over ``torch.distributed``.
 
-Per batch: forward, ``nll_loss``, backward, `average_gradients` (one flat
-all-reduce that also carries the loss, so every rank reports the global
-batch's mean loss, as the JAX Trainer does), SGD step.  Per epoch: the mean
+Per batch: forward, ``nll_loss``, backward, `average_gradients` (by default
+one flat all-reduce; with ``grad_reduce="ring"`` one ring call per tensor;
+either way the loss rides along, so every rank reports the global batch's
+mean loss, as the JAX Trainer does), SGD step.  Per epoch: the mean
 loss and samples/s, read from the device once.  Without a process group the
 Trainer runs a world of one and issues no collective.
 """
@@ -22,7 +23,11 @@ from tpu_dist_torch.comm.collectives import all_reduce
 from tpu_dist_torch.data.loader import DistributedLoader
 from tpu_dist_torch.device import resolve_device
 from tpu_dist_torch.nn.losses import nll_loss
-from tpu_dist_torch.parallel.data_parallel import average_gradients, broadcast_parameters
+from tpu_dist_torch.parallel.data_parallel import (
+    average_gradients,
+    broadcast_parameters,
+    check_backend,
+)
 from tpu_dist_torch.train.optim import sgd
 
 
@@ -37,6 +42,10 @@ class TrainConfig:
     momentum: float = 0.5
     seed: int = 1234
     log: Callable[[str], None] = print
+    # Gradient reduction (`parallel.average_gradients`): "psum", one flat
+    # all-reduce (the default), or "ring", the hand-rolled ring per tensor
+    # (the ring kernel on the card); both exact.
+    grad_reduce: str = "psum"
 
 
 @dataclass
@@ -65,6 +74,7 @@ class Trainer:
     ):
         self.device = resolve_device(device)
         self.config = config or TrainConfig()
+        check_backend(self.config.grad_reduce)
         self.distributed = dist.is_initialized()
         if self.distributed:
             self.rank, self.world = dist.get_rank(), dist.get_world_size()
@@ -97,7 +107,8 @@ class Trainer:
         loss.backward()
         loss = loss.detach().reshape(1)
         if self.distributed:
-            average_gradients([p.grad for p in self.params] + [loss])
+            average_gradients([p.grad for p in self.params] + [loss],
+                              backend=self.config.grad_reduce)
         self.optimizer.step()
         return loss.reshape(())
 
