@@ -80,6 +80,24 @@ the exit code is nonzero:
           run: the two ranks' kernels take turns on the card); then 3 more
           ring steps traced per rank: the ring kernel's device time a
           launch, the device's busy and idle share, the host's time a step.
+[resume]  the trainers' checkpoints, accumulation and guard at full width
+          (TPU_DIST_FLASH=1, TPU_DIST_PALLAS_DENSE=1): the bfloat16
+          GPT-2-small-class LM's forward and backward at accum_steps 4
+          against 1 from the same state (loss, gradient norm, peak memory,
+          48 launches of each tensor-core flash kernel); ``fit`` of one
+          epoch with ``checkpoint_dir``, ``verify``, ``latest_intact``, a
+          restore into a trainer from another seed (params, m, v and step
+          bit for bit), the checkpoint's size, snapshot and write seconds,
+          and the resumed epoch 1 against the uninterrupted one; the same LM
+          in float16 under ``nan_guard`` with ``loss_scale=2**15`` (2 x 4
+          steps, finite and falling, bad steps counted) and one guarded
+          update given a NaN gradient (state unchanged bit for bit, the
+          scale halved); ``train_dist --epochs 1 --ckpt D`` then ``--epochs
+          2 --ckpt D`` against ``--epochs 2`` (cuDNN deterministic) and an
+          MNIST step at accum_steps 2 against 1 (4 fused-dense launches
+          against 2); ``train_lm --steps 60 --corpus docs/tutorial.md --seq
+          128`` (head dim 16: the SIMT flash kernels), its loss falling and
+          its tokens/s.
 
 Then one JSON line per kernel, the card's name and power limit, and the
 result line.  Without a CUDA device it exits nonzero before printing any
@@ -96,6 +114,16 @@ result line.
 needs four cards: it runs only [env], the build, [collectives] and [dp],
 where each rank now has a card of its own, so the collectives take NCCL
 on the card and [dp]'s ring kernel crosses NVLink; no result line.
+
+    python3 chip_smoke.py --resume
+
+runs only [env], the build and [resume]; no result line.
+
+    python3 chip_smoke.py --main
+
+runs only [env], the build, [matmul] and [main], the order the whole run
+reaches [main] in, to compare [main]'s samples/s between two trees (run
+this file from each tree's root); no result line.
 """
 
 from __future__ import annotations
@@ -813,6 +841,245 @@ def dp_path(checks, card: str) -> dict:
     return res
 
 
+GPT2_SMALL = dict(vocab=32768, dim=768, depth=12, heads=12, max_seq=1024, pos_embedding="rope")
+
+
+def counts(fa, ops) -> dict:
+    return {k.__name__: k.launches for k in (*fa.KERNELS, ops.fused_dense)}
+
+
+def zero_counts(fa, ops) -> None:
+    for k in (*fa.KERNELS, ops.fused_dense):
+        k.launches = 0
+
+
+def lm_resume(device, fa, ops, card: str) -> dict:
+    """The GPT-2-small-class LM in bfloat16 (TPU_DIST_FLASH=1): one
+    accumulated step against one plain step from the same state, then a
+    checkpointed epoch, a restore into a trainer built from another seed,
+    and the next epoch resumed against the same epoch uninterrupted."""
+    import tempfile
+
+    from tpu_dist_torch import models
+    from tpu_dist_torch.train import LMTrainConfig, LMTrainer, checkpoint, global_norm
+
+    batch, seq, steps = 16, 1024, 4
+    windows = models.synthetic_tokens(batch * steps, seq, GPT2_SMALL["vocab"], seed=5)
+
+    def trainer(seed, **cfg):
+        lm = models.TransformerLM(**GPT2_SMALL, generator=torch.Generator().manual_seed(seed))
+        return LMTrainer(lm, LMTrainConfig(global_batch=batch, compute_dtype="bfloat16",
+                                           log=lambda line: print("[resume]", line, flush=True),
+                                           **cfg), device=device)
+
+    first = trainer(0)
+    tokens = first._to_device(windows[:batch].numpy())
+    step = {}
+    for accum in (4, 1):
+        first.config.accum_steps = accum
+        zero_counts(fa, ops)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        loss = first.loss_and_grads(tokens).item()
+        norm = global_norm({k: p.grad for k, p in first.params.items()}).item()
+        step[accum] = {"loss": loss, "grad_norm": norm, "launches": counts(fa, ops),
+                       "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+    print(f"[resume] LM bf16, one global batch of {batch} x {seq}: accum_steps 4 "
+          f"{json.dumps(step[4])}; accum_steps 1 {json.dumps(step[1])}; on {card}", flush=True)
+    loss_rel = abs(step[4]["loss"] - step[1]["loss"]) / abs(step[1]["loss"])
+    norm_rel = abs(step[4]["grad_norm"] - step[1]["grad_norm"]) / abs(step[1]["grad_norm"])
+    check(loss_rel <= 1e-3, f"accum 4 loss {step[4]['loss']} vs accum 1 {step[1]['loss']}")
+    check(norm_rel <= 1e-2, f"accum 4 gradient norm {step[4]['grad_norm']} vs "
+          f"{step[1]['grad_norm']}")
+    check(step[4]["peak_gb"] < step[1]["peak_gb"], "accum 4 did not lower peak memory")
+    depth = GPT2_SMALL["depth"]
+    want = {name: 4 * depth if name in LM_ROUTE else 0 for name in step[4]["launches"]}
+    check(step[4]["launches"] == want, f"accum 4 launches {step[4]['launches']}, not {want}")
+    first.config.accum_steps = 1
+
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts(fa, ops)
+        first.fit(windows, epochs=1, checkpoint_dir=tmp)
+        fit_launches = counts(fa, ops)
+        path = os.path.join(tmp, "lm_ckpt_0.npz")
+        t0 = time.perf_counter()
+        intact = checkpoint.verify(path)
+        verify_s = time.perf_counter() - t0
+        check(intact, "verify() refused the fit's checkpoint")
+        check(str(checkpoint.latest_intact(tmp)) == path, "latest_intact did not pick it")
+        second = trainer(1)
+        t0 = time.perf_counter()
+        check(second.restore(path) == 1, "restore did not return epoch 1")
+        restore_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        for name, p in first.params.items():
+            for got, want_t in ((second.params[name], p),
+                                (second.opt_state["m"][name], first.opt_state["m"][name]),
+                                (second.opt_state["v"][name], first.opt_state["v"][name])):
+                check(torch.equal(got, want_t), f"restored {name} differs")
+        check(torch.equal(second.opt_state["step"], first.opt_state["step"]), "step differs")
+        writer = checkpoint.AsyncCheckpointer()
+        timed = os.path.join(tmp, "timed.npz")
+        first.save(timed, epoch=1, async_writer=writer)
+        writer.wait()
+        size = os.path.getsize(timed)
+        print(f"[resume] checkpoint of {sum(p.numel() for p in first.params.values())} "
+              f"float32 params + m + v: {size} bytes; snapshot (device to host) "
+              f"{writer.snapshot_seconds} s, write {writer.write_seconds} s (background "
+              f"thread), verify {verify_s} s, restore {restore_s} s; on {card}", flush=True)
+        (resumed,) = second.fit(windows, start_epoch=1, epochs=2)
+        (uninterrupted,) = first.fit(windows, start_epoch=1, epochs=2)
+    rel = abs(resumed.mean_loss - uninterrupted.mean_loss) / abs(uninterrupted.mean_loss)
+    print(f"[resume] epoch 1: resumed {resumed.mean_loss}, uninterrupted "
+          f"{uninterrupted.mean_loss}, rel {rel}; fit launches {json.dumps(fit_launches)}",
+          flush=True)
+    check(rel <= 1e-4, f"resumed epoch-1 loss {resumed.mean_loss} vs {uninterrupted.mean_loss}")
+    del first, second
+    torch.cuda.empty_cache()
+    return {"accum": step, "fit_launches": fit_launches, "bytes": size,
+            "snapshot_s": writer.snapshot_seconds, "write_s": writer.write_seconds}
+
+
+def lm_guarded_f16(device, fa, ops, card: str) -> dict:
+    """The same LM in float16 under ``nan_guard`` with ``loss_scale=2**15``:
+    2 epochs of 4 steps, then one guarded update given a NaN gradient."""
+    from tpu_dist_torch import models
+    from tpu_dist_torch.resilience import guards
+    from tpu_dist_torch.train import LMTrainConfig, LMTrainer
+
+    batch, seq, steps = 16, 1024, 4
+    lm = models.TransformerLM(**GPT2_SMALL, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        # float16's LayerNorm backward overflows at the init's std of 0.02
+        # (rsqrt(var)^3 = 1.25e5 > 65504), in both packages: start at 0.1
+        lm.embed.table.mul_(5.0)
+    trainer = LMTrainer(lm, LMTrainConfig(global_batch=batch, compute_dtype="float16",
+                                          nan_guard=True, loss_scale=2.0**15,
+                                          log=lambda line: print("[resume]", line, flush=True)),
+                        device=device)
+    windows = models.synthetic_tokens(batch * steps, seq, GPT2_SMALL["vocab"], seed=6)
+    zero_counts(fa, ops)
+    history = trainer.fit(windows, epochs=2)
+    launches = counts(fa, ops)
+    want = {name: GPT2_SMALL["depth"] * 2 * steps if name.endswith("_sm90") else 0
+            for name in launches}
+    print(f"[resume] float16, nan_guard, loss_scale 2**15: losses "
+          f"{[h.mean_loss for h in history]}, bad_steps {[h.bad_steps for h in history]}, "
+          f"scale {guards.loss_scale(trainer.opt_state)}, tokens/s "
+          f"{[h.tokens_per_sec for h in history]}, launches {json.dumps(launches)}; on {card}",
+          flush=True)
+    check(launches == want, f"float16 launches {launches}, not {want}")
+    check(all(math.isfinite(h.mean_loss) for h in history), "non-finite float16 epoch loss")
+    check(history[1].mean_loss < history[0].mean_loss, "float16 epoch 1 not below epoch 0")
+
+    trainer.loss_and_grads(trainer._to_device(windows[:batch].numpy()))
+    grads = {k: p.grad for k, p in trainer.params.items()}
+    next(iter(grads.values())).view(-1)[7] = float("nan")
+    params = {k: p.detach().clone() for k, p in trainer.params.items()}
+    inner = {key: {k: t.clone() for k, t in trainer.opt_state["inner"][key].items()}
+             for key in ("m", "v")}
+    inner_step = trainer.opt_state["inner"]["step"].clone()
+    bad, scale = guards.bad_steps(trainer.opt_state), guards.loss_scale(trainer.opt_state)
+    trainer.optimizer.update(trainer.params, grads, trainer.opt_state)
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, params[k]) for k, p in trainer.params.items()) and all(
+        torch.equal(trainer.opt_state["inner"][key][k], t)
+        for key in inner for k, t in inner[key].items()
+    ) and torch.equal(trainer.opt_state["inner"]["step"], inner_step)
+    after = (guards.bad_steps(trainer.opt_state), guards.loss_scale(trainer.opt_state))
+    print(f"[resume] guarded update with a NaN gradient: params and state unchanged {same}, "
+          f"bad_steps {bad} -> {after[0]}, scale {scale} -> {after[1]}", flush=True)
+    check(same, "a NaN step changed the params or the optimizer state")
+    check(after == (bad + 1, max(scale / 2, 1.0)), f"guard scalars {after} after a bad step")
+    del trainer, lm
+    torch.cuda.empty_cache()
+    return {"launches": launches, "history": [h.mean_loss for h in history]}
+
+
+def mnist_resume(device, ops, card: str) -> dict:
+    """``train_dist --epochs 1 --ckpt D`` then ``--epochs 2 --ckpt D``
+    against ``--epochs 2`` uninterrupted (TPU_DIST_PALLAS_DENSE=1, cuDNN
+    deterministic), and one step at accum_steps 2 against 1."""
+    import tempfile
+
+    from tpu_dist_torch import data, models
+    from tpu_dist_torch.demos import train_dist
+    from tpu_dist_torch.train import TrainConfig, Trainer
+
+    os.environ.update(WORLD_SIZE="1", RANK="0", MASTER_ADDR="localhost")
+    os.environ.pop("MASTER_PORT", None)  # world 1: an in-process store, no port
+    cudnn = torch.backends.cudnn
+    before = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False  # the runs must compute the same bits
+    ops.fused_dense.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dist.main(["--epochs", "1", "--ckpt", tmp])
+        _, resumed, _ = train_dist.main(["--epochs", "2", "--ckpt", tmp])
+        _, whole, _ = train_dist.main(["--epochs", "2"])
+    runs_launches = ops.fused_dense.launches
+    # 468 steps an epoch and 10 evaluation batches a run, 2 launches each
+    check(runs_launches == 2 * (4 * 468 + 3 * 10),
+          f"fused dense launched {runs_launches} times in the three runs, not 3804")
+    check([h.epoch for h in resumed] == [1], f"resumed epochs {[h.epoch for h in resumed]}")
+    rel = abs(resumed[0].mean_loss - whole[1].mean_loss) / whole[1].mean_loss
+    print(f"[resume] train_dist --ckpt: epoch 1 resumed {resumed[0].mean_loss}, uninterrupted "
+          f"{whole[1].mean_loss}, rel {rel}; fused_dense {runs_launches} launches in the "
+          "three runs", flush=True)
+    check(rel <= 1e-5, "resumed MNIST epoch 1 differs from the uninterrupted one")
+
+    x, y = data.synthetic_mnist(128, seed=2)[:]
+    x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    out = {}
+    for accum in (2, 1):
+        net = models.mnist_net(torch.Generator().manual_seed(0))
+        for layer in net:
+            if hasattr(layer, "rate"):
+                layer.rate = 0.0
+        trainer = Trainer(net, TrainConfig(accum_steps=accum, log=lambda line: None),
+                          device=device)
+        ops.fused_dense.launches = 0
+        out[accum] = (trainer.train_step(x, y).item(), ops.fused_dense.launches)
+    print(f"[resume] MNIST step, accum_steps 2: loss {out[2][0]}, fused_dense {out[2][1]}; "
+          f"accum_steps 1: loss {out[1][0]}, fused_dense {out[1][1]}", flush=True)
+    check(abs(out[2][0] - out[1][0]) <= 1e-5, "accum 2 loss differs from accum 1 by > 1e-5")
+    check((out[2][1], out[1][1]) == (4, 2), f"fused dense launches {out[2][1]}, {out[1][1]}")
+    cudnn.deterministic, cudnn.benchmark = before
+    return {"runs_launches": runs_launches, "accum_launches": {2: out[2][1], 1: out[1][1]}}
+
+
+def lm_demo(fa, ops, card: str) -> dict:
+    """``python -m tpu_dist_torch.demos.train_lm --steps 60 --corpus
+    docs/tutorial.md --seq 128`` (TPU_DIST_FLASH=1): head dim 16, the SIMT
+    kernels."""
+    from tpu_dist_torch.demos import train_lm
+
+    corpus = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "tutorial.md")
+    zero_counts(fa, ops)
+    out = train_lm.main(["--steps", "60", "--corpus", corpus, "--seq", "128"])
+    launches = counts(fa, ops)
+    losses = out["losses"]
+    print(f"[resume] train_lm --steps 60 --corpus docs/tutorial.md --seq 128: loss "
+          f"{losses[0]} -> {losses[-1]}, {out['tokens_per_sec']} tokens/s, held-out "
+          f"perplexity {out['val_perplexity']}, launches {json.dumps(launches)}; on {card}",
+          flush=True)
+    check(losses[-1] < losses[0], "train_lm's loss did not fall")
+    # depth 2: 60 training steps, and the held-out pass's forward (one batch)
+    want = {name: 2 * 60 + (2 if name == "flash_fwd_simt" else 0) if name in LM_F32_ROUTE
+            else 0 for name in launches}
+    check(launches == want, f"train_lm launches {launches}, not {want}")
+    return {"launches": launches, "tokens_per_sec": out["tokens_per_sec"]}
+
+
+def resume_path(device, fa, ops, card: str) -> dict:
+    t0 = time.perf_counter()
+    os.environ["TPU_DIST_FLASH"] = "1"
+    os.environ["TPU_DIST_PALLAS_DENSE"] = "1"
+    out = {"lm": lm_resume(device, fa, ops, card), "f16": lm_guarded_f16(device, fa, ops, card),
+           "mnist": mnist_resume(device, ops, card), "demo": lm_demo(fa, ops, card)}
+    print(f"[resume] phase {time.perf_counter() - t0} s on {card}", flush=True)
+    return out
+
+
 def build_all(_build) -> None:
     """One nvcc per source, all started together."""
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -850,8 +1117,17 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print("[env] TF32 off for matmul and cuDNN (float32 computed in float32)", flush=True)
 
-    if sys.argv[1:] not in ([], ["--lm-f32"], ["--nccl"]):
-        sys.exit("usage: python3 chip_smoke.py [--lm-f32 | --nccl]")
+    if sys.argv[1:] not in ([], ["--lm-f32"], ["--nccl"], ["--resume"], ["--main"]):
+        sys.exit("usage: python3 chip_smoke.py [--lm-f32 | --nccl | --resume | --main]")
+    if sys.argv[1:] == ["--main"]:
+        build_all(_build)
+        matmul_cases(device, ops, F)
+        main_path(device, ops, card_name)
+        return
+    if sys.argv[1:] == ["--resume"]:
+        build_all(_build)
+        resume_path(device, fa, ops, card_and_power_limit())
+        return
     if sys.argv[1:] == ["--lm-f32"]:
         os.environ["TPU_DIST_FLASH"] = "1"
         lm_fit(device, fa, flops, card_and_power_limit(), compute_dtype=None,
@@ -875,6 +1151,7 @@ def main() -> None:
     ring = ring_path(checks, flops, metrics, card_name)
     collectives_path(checks, card_and_power_limit())
     dp = dp_path(checks, card_and_power_limit())
+    resume = resume_path(device, fa, ops, card_and_power_limit())
 
     step = rows[:2]  # the two launches of one training step
     kernel = {
@@ -890,6 +1167,8 @@ def main() -> None:
         "bound_ms": sum(r["bound_ms"] for r in step),
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in step) else "operations",
         "library_ms": sum(r["library_ms"] for r in step),
+        "launches_resume": {"train_dist, three runs": resume["mnist"]["runs_launches"],
+                            "one step at accum_steps 2": resume["mnist"]["accum_launches"][2]},
         "work": "one training step's two launches: 128x320x50 + 128x50x10 (MxKxN), "
                 "float32, epilogue none",
         "tiling": [r["tiling"] for r in step],
@@ -916,6 +1195,13 @@ def main() -> None:
             pair = pairs["lm" if on_lm else "f32"]
             entry["backward_pair"] = {
                 key: pair[key] for key in ("kernels", "ms", "library_ms", "library")}
+        if on_lm:
+            entry["launches_resume"] = {
+                "bf16 step, accum_steps 4": resume["lm"]["accum"][4]["launches"][name],
+                "bf16 fit, one epoch": resume["lm"]["fit_launches"][name],
+                "float16 guarded fit": resume["f16"]["launches"][name]}
+        else:
+            entry["launches_resume"] = {"train_lm": resume["demo"]["launches"][name]}
         if on_lm:  # the same [lm] inputs, SIMT
             simt = next(r for r in flash_rows
                         if r["case"] == "lm" and r["kernel"] == name.replace("sm90", "simt"))

@@ -2,6 +2,7 @@
 
 import gzip
 import struct
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -108,3 +109,84 @@ def test_distributed_loader_rejects_bad_rank_and_batch():
         data.DistributedLoader(ds, 2, 128, rank=2)
     with pytest.raises(ValueError, match="divisible"):
         data.DistributedLoader(ds, 3, 128, rank=0)
+
+
+# ------------------------------------------------- HostLoader, text, digits
+
+
+def test_host_loader_keeps_order_and_content():
+    rng = np.random.default_rng(0)
+    items = [(rng.standard_normal((3, 2)).astype(np.float32), np.arange(i, i + 4))
+             for i in range(7)]
+    with data.HostLoader(iter(items), "cpu", depth=2) as loader:
+        got = list(loader)
+    assert len(got) == len(items)
+    for (x, y), (a, b) in zip(got, items):
+        np.testing.assert_array_equal(x.numpy(), a)
+        np.testing.assert_array_equal(y.numpy(), b)
+    with data.HostLoader(iter([np.ones(2)] * 3), "cpu", depth=1) as loader:
+        assert [t.tolist() for t in loader] == [[1.0, 1.0]] * 3
+
+
+def test_host_loader_reraises_a_worker_error():
+    def broken():
+        yield np.zeros(2)
+        raise RuntimeError("batch assembly failed")
+
+    loader = data.HostLoader(broken(), "cpu")
+    assert next(loader).tolist() == [0.0, 0.0]
+    with pytest.raises(RuntimeError, match="batch assembly failed"):
+        next(loader)
+    with pytest.raises(StopIteration):
+        next(loader)
+    loader.close()
+
+
+def test_host_loader_joins_on_an_early_close():
+    def endless():
+        i = 0
+        while True:
+            yield np.full(3, i)
+            i += 1
+
+    with data.HostLoader(endless(), "cpu", depth=2) as loader:
+        assert next(loader).tolist() == [0, 0, 0]
+        thread = loader._thread
+    assert not thread.is_alive()
+    with pytest.raises(StopIteration):
+        next(loader)
+
+
+def test_host_loader_refuses_depth_below_one():
+    with pytest.raises(ValueError, match="depth"):
+        data.HostLoader(iter([]), "cpu", depth=0)
+
+
+@pytest.mark.parametrize("seq_len", [64, 256])
+def test_text_corpus_and_split_are_identical(seq_len):
+    from tpu_dist.data import text as jax_text
+
+    path = Path(__file__).resolve().parents[1] / "docs" / "tutorial.md"
+    a = jax_text.load_text(path, seq_len)
+    b = data.load_text(path, seq_len)
+    assert len(a) == len(b) > 0 and data.TEXT_VOCAB == jax_text.VOCAB == 256
+    for i in (0, len(a) // 2, len(a) - 1):
+        _same(b[i], a[i])
+    assert b.decode(b[0]) == a.decode(a[0])
+    ta, va = jax_text.load_text(path, seq_len, val_fraction=0.1)
+    tb, vb = data.load_text(path, seq_len, val_fraction=0.1)
+    assert tb.indices == ta.indices and vb.indices == va.indices
+    _same(np.stack([tb[i] for i in range(len(tb))]), np.stack([ta[i] for i in range(len(ta))]))
+    blob = "héllo wörld " * 30
+    _same(data.TextCorpus(blob, 16)[3], jax_text.TextCorpus(blob, 16)[3])
+    with pytest.raises(ValueError, match="shorter than one window"):
+        data.TextCorpus("ab", 16)
+
+
+@pytest.mark.parametrize("split", ["train", "test"])
+def test_real_digits_are_identical(split):
+    a = jax_data.load_real_digits(split)
+    b = data.load_real_digits(split)
+    _same(b.images, a.images)
+    _same(b.labels, a.labels)
+    assert not b.synthetic and b.images.shape[1:] == (28, 28, 1)

@@ -128,8 +128,8 @@ def test_validation_perplexity_is_reported():
 
 def test_unported_options_are_refused():
     lm = models.TransformerLM(vocab=32, dim=16, depth=1, heads=2, max_seq=64)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        LMTrainer(lm, LMTrainConfig(accum_steps=2), device="cpu")
+    with pytest.raises(ValueError, match="accum_steps"):
+        LMTrainer(lm, LMTrainConfig(accum_steps=0), device="cpu")
     with pytest.raises(ValueError, match="compute_dtype"):
         LMTrainer(lm, LMTrainConfig(compute_dtype="int32"), device="cpu")
     trainer = LMTrainer(lm, LMTrainConfig(global_batch=8, log=_quiet), device="cpu")
@@ -258,3 +258,44 @@ def test_gloo_world_two_matches_world_one(tmp_path, monkeypatch):
         _assert_params_close(rank_out["state"], single.lm.state_dict(), steps=2)
     for name, t in out[0]["state"].items():
         torch.testing.assert_close(t, out[1]["state"][name], rtol=0, atol=0)
+
+
+def test_accumulated_fit_matches_jax_lm_trainer(monkeypatch):
+    """accum_steps=2 in both packages (4 windows a step, 2 a microbatch),
+    held as test_fit_matches_jax_lm_trainer holds the plain fit."""
+    monkeypatch.setenv("TPU_DIST_FLASH", "1")
+    mesh = jax_comm.make_mesh(1, ("data",), platform="cpu")
+    cfg = dict(epochs=3, global_batch=4, accum_steps=2, log=_quiet)
+    ref = jax_train.LMTrainer(jax_models.TransformerLM(**LM), mesh, jax_train.LMTrainConfig(**cfg))
+    lm = models.TransformerLM(**LM)
+    lm.load_state_dict(interop.params_from_jax(jax.device_get(ref.params)))
+    port = LMTrainer(lm, LMTrainConfig(**cfg), device="cpu")
+    windows = np.array(jax_models.synthetic_tokens(4, 128, LM["vocab"], seed=2))
+    want, got = ref.fit(windows), port.fit(windows)
+    np.testing.assert_allclose([s.mean_loss for s in got], [s.mean_loss for s in want],
+                               rtol=1e-5)
+    _assert_params_close(port.lm.state_dict(),
+                         interop.params_from_jax(jax.device_get(ref.params)), steps=3)
+
+
+def test_accumulated_step_equals_one_step():
+    """accum_steps=4 against accum_steps=1 on the same 8 windows: the
+    loss, every gradient and the updated params, up to float32 sums taken
+    in another order; a batch of 6 does not split into 4."""
+    trainers = [
+        LMTrainer(models.TransformerLM(vocab=32, dim=16, depth=2, heads=2, max_seq=128,
+                                       pos_embedding="rope",
+                                       generator=torch.Generator().manual_seed(0)),
+                  LMTrainConfig(global_batch=8, accum_steps=k, log=_quiet), device="cpu")
+        for k in (1, 4)
+    ]
+    tokens = models.synthetic_tokens(8, 128, 32, seed=6)
+    losses = [t.loss_and_grads(tokens).item() for t in trainers]
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-6)
+    for name, p in trainers[0].params.items():
+        torch.testing.assert_close(trainers[1].params[name].grad, p.grad, rtol=1e-5, atol=1e-7)
+    for t in trainers:
+        t.train_step(tokens)
+    _assert_params_close(trainers[1].lm.state_dict(), trainers[0].lm.state_dict(), steps=2)
+    with pytest.raises(ValueError, match="accum_steps 4"):
+        trainers[1].train_step(tokens[:6])

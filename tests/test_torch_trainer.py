@@ -237,3 +237,143 @@ def test_ring_reduce_at_world_two_matches_jax_trainer_and_psum():
             a, b = (got, want) if key is None else (got[key], want[key])
             assert torch.equal(a, b), (what, key)
             assert torch.equal(a[0], a[1]), (what, key)  # both ranks hold the same bits
+
+
+# ------------------------------------------ accumulation, compute type, remat
+
+
+def _jax_pair(monkeypatch, **cfg):
+    """A JAX Trainer and a port Trainer with ``cfg``, same params, dropout
+    off, TPU_DIST_PALLAS_DENSE=1."""
+    monkeypatch.setenv("TPU_DIST_PALLAS_DENSE", "1")
+    jax_model = jax_models.mnist_net()
+    for i in DROPOUT_LAYERS:
+        jax_model.layers[i].rate = 0.0
+    mesh = jax_comm.make_mesh(1, ("data",), platform="cpu")
+    ref = jax_train.Trainer(jax_model, jax_models.IN_SHAPE, mesh,
+                            jax_train.TrainConfig(epochs=1, log=_quiet, **cfg))
+    return ref, Trainer(_net_like(ref), TrainConfig(epochs=1, log=_quiet, **cfg), device="cpu")
+
+
+def _net_like(ref):
+    """The port's ConvNet holding the JAX Trainer's params, dropout off."""
+    net = models.mnist_net()
+    for i in DROPOUT_LAYERS:
+        net[i].rate = 0.0
+    net.load_state_dict(interop.params_from_jax(jax.device_get(ref.params)))
+    return net
+
+
+@pytest.mark.parametrize("cfg", [dict(accum_steps=2), dict(remat=True),
+                                 dict(compute_dtype="bfloat16")],
+                         ids=["accum2", "remat", "bfloat16"])
+def test_trainer_options_match_jax_trainer(monkeypatch, cfg):
+    """One epoch of 3 steps with each option against the JAX Trainer with
+    the same option.  bfloat16 rounds every activation in both packages,
+    each at its own places, so its loss agrees to 1e-2 relative and its
+    params to 1e-3; the others as test_three_steps_match_jax_trainer.
+    Those bounds would also pass a float32 run, so for bfloat16 every
+    layer with parameters must see bfloat16 inputs, and the port's loss
+    must lie nearer JAX's bfloat16 loss than the same port run in float32
+    does."""
+    ref, port = _jax_pair(monkeypatch, **cfg)
+    seen = set()
+    for layer in port.model:
+        if any(True for _ in layer.parameters()):
+            layer.register_forward_hook(lambda _m, inputs, _out: seen.add(inputs[0].dtype))
+    want = ref.fit(jax_data.synthetic_mnist(384, seed=7))
+    got = port.fit(data.synthetic_mnist(384, seed=7))
+    tol = dict(rtol=1e-2, atol=0) if "compute_dtype" in cfg else TOL
+    np.testing.assert_allclose(got[0].mean_loss, want[0].mean_loss, **tol)
+    if "compute_dtype" in cfg:
+        for a, b in zip(_port_params(port), jax.device_get(ref.params)):
+            for name in b:
+                np.testing.assert_allclose(a[name], b[name], atol=1e-3, rtol=0)
+        assert seen == {torch.bfloat16}
+        f32 = Trainer(_net_like(ref), TrainConfig(epochs=1, log=_quiet), device="cpu")
+        (got32,) = f32.fit(data.synthetic_mnist(384, seed=7))
+        assert (abs(got[0].mean_loss - want[0].mean_loss)
+                < abs(got32.mean_loss - want[0].mean_loss))
+    else:
+        assert seen == {torch.float32}
+        _assert_trees_close(_port_params(port), jax.device_get(ref.params))
+    assert all(p.dtype == torch.float32 for p in port.model.parameters())
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_accumulated_step_equals_one_step(k):
+    """accum_steps=k on the same 128-sample batch as accum_steps=1: the
+    same loss and the same updated params, up to float32 sums taken in
+    another order."""
+    x, y = (torch.from_numpy(a) for a in data.synthetic_mnist(128, seed=2)[:])
+    trainers = []
+    for accum in (1, k):
+        net = models.mnist_net(torch.Generator().manual_seed(0))
+        for i in DROPOUT_LAYERS:
+            net[i].rate = 0.0
+        trainers.append(Trainer(net, TrainConfig(accum_steps=accum, log=_quiet), device="cpu"))
+    losses = [t.train_step(x, y).item() for t in trainers]
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-6)
+    for name, want in trainers[0].model.state_dict().items():
+        torch.testing.assert_close(trainers[1].model.state_dict()[name], want,
+                                   atol=1e-6, rtol=0)
+
+
+def test_indivisible_local_batch_is_refused():
+    trainer = Trainer(models.mnist_net(), TrainConfig(accum_steps=3, log=_quiet), device="cpu")
+    with pytest.raises(ValueError, match="accum_steps 3"):
+        trainer.fit(data.synthetic_mnist(256))
+
+
+def test_remat_with_dropout_draws_the_same_bits():
+    """``remat=True`` recomputes the forward in the backward with the same
+    dropout masks: a step equals the step without it, bit for bit, and
+    the generator ends where it would have."""
+    x, y = (torch.from_numpy(a) for a in data.synthetic_mnist(64, seed=2)[:])
+    trainers = [
+        Trainer(models.mnist_net(torch.Generator().manual_seed(0)),
+                TrainConfig(remat=remat, log=_quiet), device="cpu")
+        for remat in (False, True)
+    ]
+    losses = [t.train_step(x, y) for t in trainers]
+    assert torch.equal(losses[0], losses[1])
+    for name, want in trainers[0].model.state_dict().items():
+        assert torch.equal(trainers[1].model.state_dict()[name], want), name
+    assert torch.equal(trainers[0].generator.get_state(), trainers[1].generator.get_state())
+
+
+def test_eval_dataset_fills_eval_accuracy(pair):
+    ref, port, _ = pair
+    test = data.synthetic_mnist(300, seed=1)
+    (got,) = port.fit(data.synthetic_mnist(256, seed=7), eval_dataset=test)
+    (want,) = ref.fit(jax_data.synthetic_mnist(256, seed=7),
+                      eval_dataset=jax_data.synthetic_mnist(300, seed=1))
+    assert got.eval_accuracy == port.evaluate(test) == want.eval_accuracy
+    assert got.bad_steps is None
+
+
+def test_accumulated_ring_reduce_at_world_two_equals_psum():
+    """accum_steps=2 with ``grad_reduce="ring"`` at Gloo world 2: the same
+    bits as psum, on both ranks, and within the tolerance of one process
+    stepping on the global batches without accumulation."""
+    net = models.mnist_net(torch.Generator().manual_seed(0))
+    state = net.state_dict()
+    ds = jax_data.synthetic_mnist(256, seed=7)
+    batches = list(jax_data.DistributedLoader(ds, 1, 128, seed=1234).epoch(0))
+    out = comm.spmd(workers.trainer_steps, state, batches, ("ring", "psum"), 2,
+                    world=2, device="cpu", timeout=240)
+    ring, psum = out["ring"], out["psum"]
+    for what in ("losses", "params", "momentum"):
+        got, want = ring[what], psum[what]
+        for key in (got if isinstance(got, dict) else [None]):
+            a, b = (got, want) if key is None else (got[key], want[key])
+            assert torch.equal(a, b), (what, key)
+            assert torch.equal(a[0], a[1]), (what, key)
+    for i in DROPOUT_LAYERS:
+        net[i].rate = 0.0
+    single = Trainer(net, TrainConfig(log=_quiet), device="cpu")
+    losses = [single.train_step(torch.from_numpy(x), torch.from_numpy(y)).item()
+              for x, y in batches]
+    np.testing.assert_allclose(ring["losses"][0].numpy(), losses, **TOL)
+    for name, want in single.model.state_dict().items():
+        torch.testing.assert_close(ring["params"][name][0], want, atol=1e-5, rtol=0)

@@ -190,11 +190,13 @@ def concurrent_world(tag: int) -> torch.Tensor:
 # ------------------------------------------------- the Trainer's reduction
 
 
-def trainer_steps(state: dict, batches: list, backends: tuple[str, ...]) -> dict:
+def trainer_steps(state: dict, batches: list, backends: tuple[str, ...],
+                  accum_steps: int = 1) -> dict:
     """For each gradient reduction in ``backends``, a Trainer of the ConvNet
-    (dropout off) from ``state`` takes one step on this rank's rows of each
-    global batch (rank-major halves, as the JAX package shards a batch);
-    returns, per backend, the losses, the params and the momentum buffers."""
+    (dropout off, ``accum_steps`` microbatches) from ``state`` takes one
+    step on this rank's rows of each global batch (rank-major halves, as
+    the JAX package shards a batch); returns, per backend, the losses, the
+    params and the momentum buffers."""
     n, r = comm.world_size(), comm.rank()
     out = {}
     for backend in backends:
@@ -203,8 +205,8 @@ def trainer_steps(state: dict, batches: list, backends: tuple[str, ...]) -> dict
             if hasattr(layer, "rate"):
                 layer.rate = 0.0
         net.load_state_dict(state)
-        trainer = Trainer(net, TrainConfig(grad_reduce=backend, log=lambda line: None),
-                          device="cpu")
+        trainer = Trainer(net, TrainConfig(grad_reduce=backend, accum_steps=accum_steps,
+                                           log=lambda line: None), device="cpu")
         losses = []
         for x, y in batches:
             rows = slice(r * len(x) // n, (r + 1) * len(x) // n)
@@ -217,3 +219,31 @@ def trainer_steps(state: dict, batches: list, backends: tuple[str, ...]) -> dict
                          for name, p in trainer.model.named_parameters()},
         }
     return out
+
+
+def guarded_steps() -> dict:
+    """The ConvNet Trainer (dropout off) under ``nan_guard`` with
+    ``loss_scale=256``: one good step, one where rank 1 alone has a NaN in
+    its batch, one good step."""
+    r = comm.rank()
+    net = models.mnist_net(torch.Generator().manual_seed(0))
+    for layer in net:
+        if hasattr(layer, "rate"):
+            layer.rate = 0.0
+    trainer = Trainer(net, TrainConfig(nan_guard=True, loss_scale=256.0,
+                                       log=lambda line: None), device="cpu")
+    gen = torch.Generator().manual_seed(SEED + r)
+    x = torch.randn(8, 28, 28, 1, generator=gen)
+    y = torch.arange(8) % 10
+    trainer.train_step(x, y)
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    bad = x.clone()
+    if r == 1:
+        bad[0, 0, 0, 0] = float("nan")
+    trainer.train_step(bad, y)
+    unchanged = all(torch.equal(v, before[k]) for k, v in trainer.model.state_dict().items())
+    bad_steps, scale = int(trainer.opt_state["bad_steps"]), float(trainer.opt_state["scale"])
+    trainer.train_step(x, y)
+    moved = not any(torch.equal(v, before[k]) for k, v in trainer.model.state_dict().items())
+    return {"bad_steps": bad_steps, "scale": scale, "unchanged_after_bad": unchanged,
+            "moved_after_good": moved, "params": trainer.model.state_dict()}

@@ -1,6 +1,8 @@
-"""`tpu_dist_torch.data` — MNIST, partitioning and loaders."""
+"""`tpu_dist_torch.data` — MNIST, real digits, byte text, partitioning and
+loaders."""
 
-from tpu_dist_torch.data.loader import DistributedLoader, Loader
+from tpu_dist_torch.data.digits import load_real_digits
+from tpu_dist_torch.data.loader import DistributedLoader, HostLoader, Loader
 from tpu_dist_torch.data.mnist import (
     Dataset,
     load_idx_images,
@@ -9,16 +11,23 @@ from tpu_dist_torch.data.mnist import (
     synthetic_mnist,
 )
 from tpu_dist_torch.data.partition import DataPartitioner, Partition, equal_shards
+from tpu_dist_torch.data.text import VOCAB as TEXT_VOCAB
+from tpu_dist_torch.data.text import TextCorpus, load_text
 
 __all__ = [
     "DataPartitioner",
     "Dataset",
     "DistributedLoader",
+    "HostLoader",
     "Loader",
     "Partition",
+    "TEXT_VOCAB",
+    "TextCorpus",
     "equal_shards",
     "load_idx_images",
     "load_idx_labels",
     "load_mnist",
+    "load_real_digits",
+    "load_text",
     "synthetic_mnist",
 ]

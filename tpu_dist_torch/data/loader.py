@@ -7,14 +7,18 @@ every process loads only its own rank's batches, so `DistributedLoader`
 takes the rank: rank ``r`` reads partition ``r`` of the seed-1234 split with
 shuffle seed ``seed + 1000 * r``, and its batches are the rows
 ``[r * local_batch, (r + 1) * local_batch)`` of the JAX loader's rank-major
-global batches.
+global batches.  `HostLoader` moves batch assembly and the copy to the
+device onto a background thread.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from tpu_dist_torch.data.mnist import Dataset
 from tpu_dist_torch.data.partition import DataPartitioner, Partition, equal_shards
@@ -82,3 +86,119 @@ class DistributedLoader:
         batches = self.loader.epoch(epoch)
         for _ in range(self.steps_per_epoch):
             yield next(batches)
+
+
+class _WorkerFailure:
+    """Queue marker carrying the worker thread's exception."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+_END = object()  # queue marker: the wrapped iterator is exhausted
+
+
+class HostLoader:
+    """Batch assembly and the host-to-device copy on a daemon thread,
+    feeding a bounded queue (tpu_dist/data/loader.py:161-278).
+
+    The worker pulls each item (a numpy array, or a tuple of them) from
+    ``iterator``, pins it and issues its copy to ``device`` on a copy stream
+    of its own, staying up to ``depth`` items ahead; the consumer's stream
+    waits for that copy before it uses the tensors, so the copy overlaps the
+    steps queued before it.  On the CPU the items become tensors that share
+    the arrays' memory.  One worker and a FIFO queue keep the items' order
+    and content; a worker exception is re-raised in the consumer, and
+    `close` (or leaving the ``with``) always stops and joins the thread."""
+
+    def __init__(self, iterator: Iterator, device: torch.device | str, *, depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"HostLoader depth must be >= 1, got {depth}")
+        self.device = torch.device(device)
+        self._queue: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._done = False
+        cuda = self.device.type == "cuda"
+        stream = torch.cuda.Stream(self.device) if cuda else None
+
+        def place(a: np.ndarray):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if not cuda:
+                return t
+            with torch.cuda.stream(stream):
+                return t.pin_memory().to(self.device, non_blocking=True)
+
+        def work():
+            try:
+                if cuda:
+                    torch.cuda.set_device(self.device)
+                for item in iterator:
+                    placed = tuple(map(place, item)) if isinstance(item, tuple) else place(item)
+                    ready = None
+                    if cuda:
+                        ready = torch.cuda.Event()
+                        ready.record(stream)
+                    if not self._put((placed, ready)):
+                        return  # closed mid-epoch: drop the batch and exit
+                self._put(_END)
+            except BaseException as e:  # noqa: BLE001 — must reach the consumer
+                self._put(_WorkerFailure(e))
+
+        self._thread = threading.Thread(target=work, name="host-loader", daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        """A bounded put that gives up once `close` raised the stop flag."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def __iter__(self) -> "HostLoader":
+        return self
+
+    def __next__(self):
+        if self._done:
+            raise StopIteration
+        while True:
+            try:
+                item = self._queue.get(timeout=0.5)
+                break
+            except queue.Empty:
+                if not self._thread.is_alive() and self._queue.empty():
+                    self._done = True
+                    raise StopIteration from None
+        if item is _END:
+            self._done = True
+            raise StopIteration
+        if isinstance(item, _WorkerFailure):
+            self._done = True
+            raise item.error
+        placed, ready = item
+        if ready is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(ready)
+            for t in placed if isinstance(placed, tuple) else (placed,):
+                t.record_stream(current)  # the copy stream's memory is used here
+        return placed
+
+    def close(self) -> None:
+        """Stop the worker (idempotent): raise the stop flag, drain the
+        queue so a blocked put wakes, and join."""
+        self._stop.set()
+        self._done = True
+        while True:
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join(timeout=10.0)
+
+    def __enter__(self) -> "HostLoader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -10,7 +10,8 @@ layer in a port ``Sequential``.  Only the convolution weight changes
 layout (every 4-D leaf): JAX's HWIO against torch's OIHW.  Dense weights
 are (in, out) on both sides, and the learned position table stays
 (1, max_seq, dim).  The same mapping carries any tree shaped like the
-parameters, such as optimizer moments.
+parameters, such as optimizer moments and momentum buffers; the
+trainers' checkpoints are `jax_views` of their live tensors.
 """
 
 from __future__ import annotations
@@ -44,6 +45,12 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
     return state
 
 
+def jax_view(tensor: torch.Tensor) -> torch.Tensor:
+    """A tensor in the JAX layout: a 4-D (OIHW) tensor as an HWIO view of
+    its own memory, any other tensor as it is."""
+    return tensor.permute(2, 3, 1, 0) if tensor.dim() == 4 else tensor
+
+
 def _lists(node):
     """Nested dicts whose keys are all 0..n-1 become lists."""
     if not isinstance(node, dict):
@@ -56,22 +63,31 @@ def _lists(node):
     return node
 
 
+def _nest(state: dict[str, torch.Tensor], num_layers: int | None, leaf):
+    root: dict = {}
+    for key, tensor in state.items():
+        *path, name = key.split(".")
+        node = root
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = leaf(tensor)
+    if num_layers is not None:
+        return tuple(root.get(str(i), {}) for i in range(num_layers))
+    return _lists(root)
+
+
 def params_to_jax(state: dict[str, torch.Tensor], num_layers: int | None = None):
     """Port state dict -> JAX parameter tree of numpy arrays.
 
     With ``num_layers``: the tuple of per-layer dicts of a ``Sequential`` of
     that many layers.  Without: nested dicts, with lists where the keys are
     list positions (the TransformerLM's ``blocks``)."""
-    root: dict = {}
-    for key, tensor in state.items():
-        a = tensor.detach().cpu().numpy()
-        if a.ndim == 4:
-            a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        *path, name = key.split(".")
-        node = root
-        for part in path:
-            node = node.setdefault(part, {})
-        node[name] = np.ascontiguousarray(a)
-    if num_layers is not None:
-        return tuple(root.get(str(i), {}) for i in range(num_layers))
-    return _lists(root)
+    return _nest(state, num_layers,
+                 lambda t: np.ascontiguousarray(jax_view(t).detach().cpu().numpy()))
+
+
+def jax_views(state: dict[str, torch.Tensor], num_layers: int | None = None):
+    """The tree of `params_to_jax`, its leaves the `jax_view`s of the
+    tensors themselves: reading a leaf reads the tensor, writing into it
+    writes the tensor."""
+    return _nest(state, num_layers, jax_view)

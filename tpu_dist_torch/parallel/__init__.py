@@ -1,6 +1,10 @@
 """`tpu_dist_torch.parallel` — data parallelism and the ring collectives."""
 
-from tpu_dist_torch.parallel.data_parallel import average_gradients, broadcast_parameters
+from tpu_dist_torch.parallel.data_parallel import (
+    accumulate_gradients,
+    average_gradients,
+    broadcast_parameters,
+)
 from tpu_dist_torch.parallel.ring import (
     pad_to_multiple,
     ring_all_gather,
@@ -10,6 +14,7 @@ from tpu_dist_torch.parallel.ring import (
 )
 
 __all__ = [
+    "accumulate_gradients",
     "average_gradients",
     "broadcast_parameters",
     "pad_to_multiple",

@@ -11,6 +11,10 @@ tensors the model has.  ``backend="ring"`` takes the hand-rolled ring
 instead, one call per tensor, as the JAX package maps its ring over each
 leaf: the ring kernel on the card (`ops.ring_all_reduce_pallas`), the
 chunked ring on the CPU.
+
+`accumulate_gradients` is the backward of one step, with gradient
+accumulation over microbatches and the guard's loss scale
+(tpu_dist/parallel/data_parallel.py:140-187, 253-288).
 """
 
 from __future__ import annotations
@@ -80,3 +84,46 @@ def broadcast_parameters(module: torch.nn.Module, src: int = 0) -> None:
     module (the JAX trainers replicate one copy over the mesh)."""
     tensors = list(module.parameters()) + list(module.buffers())
     _through_buckets(tensors, lambda flat: broadcast(flat, src))
+
+
+def accumulate_gradients(
+    loss_fn: Callable[..., torch.Tensor],
+    params: Sequence[torch.Tensor],
+    batch: Sequence[torch.Tensor],
+    *,
+    accum_steps: int = 1,
+    scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Forward and backward of this rank's ``batch``: leaves the mean
+    gradient over the batch in each parameter's ``.grad`` and returns the
+    mean loss (0-d, detached).
+
+    ``accum_steps=k`` splits every tensor of ``batch`` along axis 0 into
+    ``k`` microbatches and runs ``loss_fn(*microbatch)`` and its backward
+    once each, the gradients summing into ``.grad``: only one microbatch's
+    activations are live at a time.  The sums are divided by ``k``.
+    ``scale`` (the guard's loss scale) multiplies each loss before its
+    backward and is divided back out of the gradients."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    n = batch[0].shape[0]
+    if n % accum_steps:
+        raise ValueError(f"local batch {n} not divisible by accum_steps {accum_steps}")
+    for p in params:
+        p.grad = None
+    micro = n // accum_steps
+    total = None
+    for i in range(accum_steps):
+        loss = loss_fn(*(t[i * micro : (i + 1) * micro] for t in batch))
+        (loss if scale is None else loss * scale).backward()
+        total = loss.detach() if total is None else total + loss.detach()
+    grads = [p.grad for p in params if p.grad is not None]
+    with torch.no_grad():
+        if scale is not None:
+            inv = 1.0 / scale
+            for g in grads:
+                g.mul_(inv)
+        if accum_steps > 1:
+            for g in grads:
+                g.div_(accum_steps)
+    return total if accum_steps == 1 else total / accum_steps

@@ -1,11 +1,15 @@
 """`tpu_dist_torch.resilience` — bounded retry for the bootstrap and the
-launcher's typed failures (the port of `tpu_dist.resilience.retry`).
+launcher's typed failures, the NaN guard with the dynamic loss scale, and
+preemption (the ports of `tpu_dist.resilience.retry`, ``guards`` and
+``preempt``).
 
-Chaos injection, the NaN guard and preemption come with the resilience and
-observability slice.
+Chaos injection comes with resilience and observability (ROADMAP queue 1,
+item 11).
 """
 
-from tpu_dist_torch.resilience import retry
+from tpu_dist_torch.resilience import guards, retry
+from tpu_dist_torch.resilience.guards import bad_steps, loss_scale, nan_guard
+from tpu_dist_torch.resilience.preempt import PreemptionGuard
 from tpu_dist_torch.resilience.retry import (
     RendezvousTimeout,
     RetryPolicy,
@@ -13,4 +17,15 @@ from tpu_dist_torch.resilience.retry import (
     retry_call,
 )
 
-__all__ = ["RendezvousTimeout", "RetryPolicy", "WorkerFailed", "retry", "retry_call"]
+__all__ = [
+    "PreemptionGuard",
+    "RendezvousTimeout",
+    "RetryPolicy",
+    "WorkerFailed",
+    "bad_steps",
+    "guards",
+    "loss_scale",
+    "nan_guard",
+    "retry",
+    "retry_call",
+]

@@ -1,6 +1,6 @@
 """`tpu_dist_torch.train` — optimizers, schedules, FLOP counts and trainers."""
 
-from tpu_dist_torch.train import flops, metrics, schedule
+from tpu_dist_torch.train import checkpoint, flops, metrics, schedule
 from tpu_dist_torch.train.lm_trainer import LMEpochStats, LMTrainConfig, LMTrainer
 from tpu_dist_torch.train.optim import (
     Optimizer,
@@ -9,6 +9,7 @@ from tpu_dist_torch.train.optim import (
     decay_mask_default,
     global_norm,
     sgd,
+    sgd_rule,
 )
 from tpu_dist_torch.train.trainer import EpochStats, TrainConfig, Trainer
 
@@ -21,6 +22,7 @@ __all__ = [
     "TrainConfig",
     "Trainer",
     "adamw",
+    "checkpoint",
     "clip_by_global_norm",
     "decay_mask_default",
     "flops",
@@ -28,4 +30,5 @@ __all__ = [
     "metrics",
     "schedule",
     "sgd",
+    "sgd_rule",
 ]

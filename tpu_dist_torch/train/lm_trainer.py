@@ -1,12 +1,16 @@
 """LMTrainer: data-parallel training of the TransformerLM over token windows.
 
 The port of `tpu_dist.train.LMTrainer` on its data-parallel path: per step
-the dense next-token loss on the global batch (each rank its slice), the
-gradients averaged over ranks with one all-reduce that also carries the
-loss, and AdamW.  Per epoch the JAX package's order
-(``default_rng(seed + epoch).permutation``), ``n // global_batch`` steps,
-the mean loss, tokens/s and, given ``val_windows``, the validation
-perplexity.
+the dense next-token loss on the global batch (each rank its slice, over
+``accum_steps`` microbatches), the gradients averaged over ranks with one
+all-reduce that also carries the loss, and AdamW (optionally under
+``grad_clip``, and under ``nan_guard`` outermost, with the dynamic
+``loss_scale``).  Per epoch the JAX package's order
+(``default_rng(seed + epoch).permutation``), ``n // global_batch`` steps fed
+through a `data.HostLoader`, the mean loss, tokens/s, ``bad_steps`` under
+the guard and, given ``val_windows``, the validation perplexity; given
+``checkpoint_dir``, ``lm_ckpt_<epoch>.npz`` written asynchronously, and
+``lm_ckpt_preempt.npz`` on SIGTERM or SIGINT.
 
 ``compute_dtype`` (``"float32"``, ``"bfloat16"`` or ``"float16"``) runs the
 forward and backward on a copy of the float32 master parameters in that
@@ -14,10 +18,12 @@ type, cast where the JAX package casts (every floating leaf, before the
 forward), and the gradients land on the masters; the loss is a float32
 log-softmax of the logits.
 
-Not ported yet (ROADMAP queue 1, item 8): fsdp, zero1, tensor, sequence,
-pipeline and MoE modes, compressed gradients, partition rules, the NaN
-guard and loss scaling, in-flight steps, ``accum_steps != 1``,
-checkpoints and ``restore``, ``generate``, telemetry.
+Checkpoints hold ``{"params", "opt_state"}`` in the JAX package's layout
+(`interop`), so either package's `LMTrainer.restore` reads the other's.
+
+Not ported yet (ROADMAP queue 1): fsdp, zero1, tensor, sequence, pipeline
+and MoE modes, compressed gradients, partition rules (item 10), in-flight
+steps and telemetry (item 11), ``generate`` (item 9).
 """
 
 from __future__ import annotations
@@ -31,17 +37,19 @@ import torch
 import torch.distributed as dist
 from torch.func import functional_call
 
+from tpu_dist_torch.data.loader import HostLoader
 from tpu_dist_torch.device import resolve_device
 from tpu_dist_torch.models.transformer_lm import lm_loss, lm_perplexity
-from tpu_dist_torch.parallel.data_parallel import average_gradients, broadcast_parameters
+from tpu_dist_torch.parallel.data_parallel import (
+    accumulate_gradients,
+    average_gradients,
+    broadcast_parameters,
+)
+from tpu_dist_torch.resilience.guards import bad_steps, poison_if_nonfinite
+from tpu_dist_torch.resilience.preempt import PreemptionGuard
+from tpu_dist_torch.train import checkpoint
 from tpu_dist_torch.train.optim import Optimizer, adamw, clip_by_global_norm
-
-# the floating dtypes `jnp.dtype(compute_dtype)` names in the JAX trainer
-_COMPUTE_DTYPES = {
-    "float32": torch.float32,
-    "bfloat16": torch.bfloat16,
-    "float16": torch.float16,
-}
+from tpu_dist_torch.train.trainer import compute_dtype_of, guarded, jax_layout, restore_leaves
 
 
 @dataclass
@@ -53,6 +61,10 @@ class LMTrainConfig:
     accum_steps: int = 1
     compute_dtype: str | None = None  # e.g. "bfloat16"
     grad_clip: float | None = None  # global-norm clipping
+    # Skip-and-count of non-finite steps (LMEpochStats.bad_steps);
+    # loss_scale arms the dynamic loss scale.
+    nan_guard: bool = False
+    loss_scale: float | None = None
     log: Callable[[str], None] = print
 
 
@@ -64,6 +76,7 @@ class LMEpochStats:
     tokens_per_sec: float
     val_loss: float | None = None
     val_perplexity: float | None = None
+    bad_steps: int | None = None
 
 
 class LMTrainer:
@@ -85,18 +98,9 @@ class LMTrainer:
     ):
         self.device = resolve_device(device)
         self.config = config or LMTrainConfig()
-        if self.config.accum_steps != 1:
-            raise ValueError(
-                f"accum_steps={self.config.accum_steps} is not ported yet (ROADMAP "
-                "queue 1, item 8); use accum_steps=1"
-            )
-        compute = self.config.compute_dtype
-        if compute is not None and compute not in _COMPUTE_DTYPES:
-            raise ValueError(
-                f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)} or None, "
-                f"got {compute!r}"
-            )
-        self.compute_dtype = None if compute is None else _COMPUTE_DTYPES[compute]
+        if self.config.accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {self.config.accum_steps}")
+        self.compute_dtype = compute_dtype_of(self.config.compute_dtype)
         self.distributed = dist.is_initialized()
         if self.distributed:
             self.rank, self.world = dist.get_rank(), dist.get_world_size()
@@ -109,16 +113,14 @@ class LMTrainer:
         self.optimizer = optimizer or adamw(self.config.lr)
         if self.config.grad_clip is not None:
             self.optimizer = clip_by_global_norm(self.optimizer, self.config.grad_clip)
+        # outermost, over grad_clip: a non-finite step is skipped before
+        # clipping touches it
+        self.optimizer = guarded(self.optimizer, self.config)
         self.opt_state = self.optimizer.init(
             {k: p.detach() for k, p in self.params.items()}
         )
 
-    def loss_and_grads(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Forward and backward on this rank's (b, s) tokens: leaves the
-        gradients in each master's ``.grad`` and returns the loss (0-d,
-        detached)."""
-        for p in self.params.values():
-            p.grad = None
+    def _loss(self, tokens: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is None:
             logits = self.lm(tokens)
         else:
@@ -127,19 +129,53 @@ class LMTrainer:
                 for k, p in self.params.items()
             }
             logits = functional_call(self.lm, cast, (tokens,))
-        loss = lm_loss(logits.float(), tokens)
-        loss.backward()
-        return loss.detach()
+        return lm_loss(logits.float(), tokens)
+
+    def loss_and_grads(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Forward and backward on this rank's (b, s) tokens, over
+        ``accum_steps`` microbatches and under the guard's loss scale:
+        leaves the mean gradients in each master's ``.grad`` and returns the
+        loss (0-d, detached)."""
+        cfg = self.config
+        scale = (
+            self.optimizer.current_scale(self.opt_state) if cfg.loss_scale is not None else None
+        )
+        return accumulate_gradients(
+            self._loss, list(self.params.values()), (tokens,),
+            accum_steps=cfg.accum_steps, scale=scale,
+        )
 
     def train_step(self, tokens: torch.Tensor) -> torch.Tensor:
         """One AdamW step; returns the loss averaged over ranks, a 0-d
         tensor on the device (not synchronized)."""
         loss = self.loss_and_grads(tokens).reshape(1)
         grads = {k: p.grad for k, p in self.params.items()}
+        if self.config.nan_guard:
+            poison_if_nonfinite(grads.values(), loss)
         if self.distributed:
             average_gradients(list(grads.values()) + [loss])
         self.optimizer.update(self.params, grads, self.opt_state)
         return loss.reshape(())
+
+    def _ckpt_tree(self) -> dict:
+        """``{"params", "opt_state"}`` in the JAX LMTrainer's layout, as
+        views of the live tensors."""
+        return {"params": jax_layout(self.params, self.params),
+                "opt_state": jax_layout(self.opt_state, self.params)}
+
+    def save(self, path, *, epoch: int = 0, async_writer=None) -> None:
+        """Checkpoint the parameters and optimizer state (rank 0 writes);
+        with ``async_writer`` the file is written while training goes on."""
+        writer = async_writer or checkpoint
+        writer.save(path, self._ckpt_tree(), step=epoch)
+
+    def restore(self, path) -> int:
+        """Load state written by `save` (or by the JAX LMTrainer); returns
+        the stored epoch (the resume point)."""
+        live = self._ckpt_tree()
+        loaded, epoch = checkpoint.restore(path, live)
+        restore_leaves(live, loaded)
+        return epoch
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -148,9 +184,17 @@ class LMTrainer:
         return t
 
     def fit(
-        self, windows, *, epochs: int | None = None, val_windows=None
+        self,
+        windows,
+        *,
+        epochs: int | None = None,
+        val_windows=None,
+        checkpoint_dir: str | None = None,
+        start_epoch: int = 0,
     ) -> list[LMEpochStats]:
-        """``windows``: (N, S) int tokens (e.g. `models.synthetic_tokens`)."""
+        """``windows``: (N, S) int tokens (e.g. `models.synthetic_tokens`).
+        Trains epochs ``start_epoch`` .. ``epochs``; ``checkpoint_dir`` as in
+        `Trainer.fit`, with files named ``lm_ckpt_*``."""
         cfg = self.config
         windows = np.asarray(windows)
         n, s = windows.shape
@@ -164,25 +208,48 @@ class LMTrainer:
         local = gb // self.world
         steps_per_epoch = n // gb
         history = []
-        for epoch in range(epochs if epochs is not None else cfg.epochs):
-            order = np.random.default_rng(cfg.seed + epoch).permutation(n)
-            t0 = time.perf_counter()
-            total = torch.zeros((), dtype=torch.float64, device=self.device)
-            for b in range(steps_per_epoch):
-                batch = windows[order[b * gb : (b + 1) * gb]]
-                mine = batch[self.rank * local : (self.rank + 1) * local]
-                total += self.train_step(self._to_device(mine))
-            mean = total.item() / steps_per_epoch  # waits for the device
-            dt = time.perf_counter() - t0
-            tps = steps_per_epoch * gb * s / dt
-            vloss = vppl = None
-            if val_windows is not None:
-                vloss, vppl = lm_perplexity(
-                    self.lm, val_windows, batch=min(64, len(val_windows))
+        with checkpoint.AsyncCheckpointer() as writer, PreemptionGuard() as preempt:
+            for epoch in range(start_epoch, epochs if epochs is not None else cfg.epochs):
+                order = np.random.default_rng(cfg.seed + epoch).permutation(n)
+                rows = slice(self.rank * local, (self.rank + 1) * local)
+
+                def host_batches(order=order):
+                    for b in range(steps_per_epoch):
+                        yield windows[order[b * gb : (b + 1) * gb][rows]]
+
+                t0 = time.perf_counter()
+                total = torch.zeros((), dtype=torch.float64, device=self.device)
+                with HostLoader(host_batches(), self.device) as batches:
+                    for tokens in batches:
+                        total += self.train_step(tokens)
+                        if preempt.requested:
+                            break
+                if preempt.requested:
+                    if checkpoint_dir:
+                        writer.wait()
+                        self.save(f"{checkpoint_dir}/lm_ckpt_preempt.npz", epoch=epoch)
+                    cfg.log(
+                        f"preemption ({preempt.signal_name}) at epoch {epoch}: "
+                        + ("checkpoint written, stopping" if checkpoint_dir
+                           else "no checkpoint_dir, stopping")
+                    )
+                    break
+                mean = total.item() / steps_per_epoch  # waits for the device
+                dt = time.perf_counter() - t0
+                tps = steps_per_epoch * gb * s / dt
+                vloss = vppl = None
+                if val_windows is not None:
+                    vloss, vppl = lm_perplexity(
+                        self.lm, val_windows, batch=min(64, len(val_windows))
+                    )
+                bad = bad_steps(self.opt_state)  # None without the guard
+                cfg.log(
+                    f"epoch {epoch}: loss {mean:.4f}  [{tps:,.0f} tok/s]"
+                    + (f"  val loss {vloss:.4f} ppl {vppl:.1f}" if vppl else "")
+                    + (f"  bad_steps {bad}" if bad else "")
                 )
-            cfg.log(
-                f"epoch {epoch}: loss {mean:.4f}  [{tps:,.0f} tok/s]"
-                + (f"  val loss {vloss:.4f} ppl {vppl:.1f}" if vppl else "")
-            )
-            history.append(LMEpochStats(epoch, mean, dt, tps, vloss, vppl))
+                history.append(LMEpochStats(epoch, mean, dt, tps, vloss, vppl, bad))
+                if checkpoint_dir:
+                    self.save(f"{checkpoint_dir}/lm_ckpt_{epoch}.npz", epoch=epoch + 1,
+                              async_writer=writer)
         return history
