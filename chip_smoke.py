@@ -10,8 +10,10 @@ the exit code is nonzero:
 [build]   the nvcc build of every kernel source, all started together, with
           each build's seconds and ptxas's registers and spills.
 [matmul]  the fused-dense kernel against its plain version on the card, at
-          the main path's four shapes and a few others, each with the route
-          and tiles `dense_tiling` picked; times from CUDA events, beside
+          the main path's four shapes, a few others and [image]'s heads
+          (ResNet-18's 512 -> 10 and ViT-Ti's 192 -> 1000 at batches 128
+          and 256, and ViT-Ti's in bfloat16), each with the route and
+          tiles `dense_tiling` picked; times from CUDA events, beside
           ``torch.addmm`` plus the epilogue and the least time the card
           could take (bound_ms).
 [main]    the entry point ``python -m tpu_dist_torch.demos.train_dist
@@ -26,7 +28,8 @@ the exit code is nonzero:
           ran: the LM path's shape (q, k, v (16, 12, 1024, 64) bfloat16,
           causal), float32, float16, windowed, dense, ragged, head-dim-128
           (bfloat16, S 2048) and head-dim-256 (float32, bfloat16, float16)
-          cases, and arrays past 2^31 elements; each kernel's time and
+          cases, the ViT's (q, k, v (128, 3, 197, 64), non-causal, bfloat16
+          and float32), and arrays past 2^31 elements; each kernel's time and
           TFLOP/s beside its bound, its plain version's and, for the
           forward and forward + backward, the time of
           ``scaled_dot_product_attention`` on the same inputs, and for the
@@ -98,8 +101,24 @@ the exit code is nonzero:
           against 2); ``train_lm --steps 60 --corpus docs/tutorial.md --seq
           128`` (head dim 16: the SIMT flash kernels), its loss falling and
           its tokens/s.
+[image]   the flash kernels of each route against their plain versions at
+          the ViT's attention shape first; then ``python -m
+          tpu_dist_torch.demos.train_image --model resnet18 --dataset
+          cifar10 --epochs 2 --samples 4096`` (TPU_DIST_PALLAS_DENSE=1,
+          float32): its launch counts in training (the fused-dense head
+          once a step) and in evaluation, the loss falling, the test
+          accuracy, epoch 1's samples/s, a step on a batch already on the
+          card and its profile; one ResNet-18 step from the same state on
+          the card and on the CPU (loss, params, batch-norm statistics
+          within 1e-4); then ViT-Ti/16 at 224 (``--model vit --dataset
+          imagenet --samples 512 --batch 128``, TPU_DIST_FLASH=1) in
+          bfloat16 and in float32: in training 12 launches a step of each
+          kernel of the route (tensor-core for bfloat16, SIMT for float32)
+          and none of the other, in evaluation (float32 masters) 12 SIMT
+          forwards; losses, images/s, a resident step and its profile.
 
-Then one JSON line per kernel, the card's name and power limit, and the
+Then one JSON line per kernel (with its launches in each [image] run and
+its ``vit`` row of [flash]), the card's name and power limit, and the
 result line.  Without a CUDA device it exits nonzero before printing any
 result.
 
@@ -111,13 +130,22 @@ result line.
 
     python3 chip_smoke.py --nccl
 
-needs four cards: it runs only [env], the build, [collectives] and [dp],
-where each rank now has a card of its own, so the collectives take NCCL
-on the card and [dp]'s ring kernel crosses NVLink; no result line.
+needs four cards: it runs only [env], the build, [collectives], [dp] and
+[image-dp], where each rank now has a card of its own, so the collectives
+take NCCL on the card and [dp]'s ring kernel crosses NVLink; [image-dp]
+(`ops.checks.check_image_dp`) trains ResNet-18 at world 4 under "psum" for
+10 steps of 128 and requires every parameter and batch-norm buffer to hold
+the same bits on every rank; no result line.
 
     python3 chip_smoke.py --resume
 
 runs only [env], the build and [resume]; no result line.
+
+    python3 chip_smoke.py --image
+
+runs only [env], the build, [matmul]'s image-head cases and [image], to
+compare it between two trees
+(run this file from each tree's root); no result line.
 
     python3 chip_smoke.py --main
 
@@ -201,7 +229,43 @@ def bound(nbytes: int, n_ops: float, dtype: torch.dtype) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+MATMUL_CASES = [  # (M, K, N, epilogue, dtype)
+    (128, 320, 50, "none", torch.float32),  # training step: fc1
+    (128, 50, 10, "none", torch.float32),  # training step: fc2
+    (1024, 320, 50, "none", torch.float32),  # evaluation batch: fc1
+    (1024, 50, 10, "none", torch.float32),  # evaluation batch: fc2
+    (300, 270, 520, "relu", torch.float32),
+    (300, 270, 520, "gelu", torch.float32),
+    (4096, 4096, 4096, "none", torch.float32),
+    (4096, 4096, 4096, "none", torch.bfloat16),
+]
+# the classifier heads of [image]: ResNet-18's 512 -> 10 and ViT-Ti's
+# 192 -> 1000, at the training batch and the evaluation batch (float32
+# masters in evaluation)
+IMAGE_HEAD_CASES = [
+    (128, 512, 10, "none", torch.float32),  # ResNet-18 training step
+    (256, 512, 10, "none", torch.float32),  # ResNet-18 evaluation batch
+    (128, 192, 1000, "none", torch.float32),  # ViT-Ti float32 training step
+    (128, 192, 1000, "none", torch.bfloat16),  # ViT-Ti bfloat16 training step
+    (256, 192, 1000, "none", torch.float32),  # ViT-Ti evaluation batch
+]
+
+
 def matmul_cases(device, ops, F) -> list[dict]:
+    """The rows of MATMUL_CASES, the gradient case's, then those of
+    IMAGE_HEAD_CASES: each held to the plain version and timed."""
+    gen = torch.Generator(device).manual_seed(0)
+    rows = dense_rows(device, ops, F, MATMUL_CASES, gen)
+    grad = gradient_case(device, ops, F, gen)
+    print("[matmul]", json.dumps(grad), flush=True)
+    return rows + [grad] + image_head_rows(device, ops, F)
+
+
+def image_head_rows(device, ops, F) -> list[dict]:
+    return dense_rows(device, ops, F, IMAGE_HEAD_CASES, torch.Generator(device).manual_seed(2))
+
+
+def dense_rows(device, ops, F, cases, gen) -> list[dict]:
     dense_tiling = importlib.import_module("tpu_dist_torch.ops.matmul").dense_tiling
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     library_epilogue = {
@@ -209,17 +273,6 @@ def matmul_cases(device, ops, F) -> list[dict]:
         "relu": F.relu,
         "gelu": lambda y: F.gelu(y, approximate="tanh"),
     }
-    cases = [
-        (128, 320, 50, "none", torch.float32),  # training step: fc1
-        (128, 50, 10, "none", torch.float32),  # training step: fc2
-        (1024, 320, 50, "none", torch.float32),  # evaluation batch: fc1
-        (1024, 50, 10, "none", torch.float32),  # evaluation batch: fc2
-        (300, 270, 520, "relu", torch.float32),
-        (300, 270, 520, "gelu", torch.float32),
-        (4096, 4096, 4096, "none", torch.float32),
-        (4096, 4096, 4096, "none", torch.bfloat16),
-    ]
-    gen = torch.Generator(device).manual_seed(0)
     rows = []
     for m, k, n, epilogue, dtype in cases:
         x = torch.randn(m, k, generator=gen, device=device).to(dtype)
@@ -247,8 +300,6 @@ def matmul_cases(device, ops, F) -> list[dict]:
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
         print("[matmul]", json.dumps(rows[-1]), flush=True)
-    rows.append(gradient_case(device, ops, F, gen))
-    print("[matmul]", json.dumps(rows[-1]), flush=True)
     return rows
 
 
@@ -374,6 +425,25 @@ FLASH_REPLACES = {  # wrapper: (TPU kernel, CUDA source)
 LM_ATTENTION = (16, 12, 1024, 64)
 LM_ROUTE = ("flash_fwd_sm90", "flash_dkv_sm90", "flash_dq_sm90")  # the kernels it launches
 LM_F32_ROUTE = ("flash_fwd_simt", "flash_dkv_simt", "flash_dq_simt")  # float32 [lm]
+VIT_ATTENTION = (128, 3, 197, 64)  # one attention call of ViT-Ti/16 at 224: (b, heads, S, d)
+VIT_DEPTH = 12
+
+
+FLASH_CASES = [  # label, (b, heads, S, d), dtype, causal, window
+    ("lm", LM_ATTENTION, torch.bfloat16, True, None),  # every [lm] call
+    ("f32", LM_ATTENTION, torch.float32, True, None),
+    ("f16", LM_ATTENTION, torch.float16, True, None),
+    ("window", LM_ATTENTION, torch.bfloat16, True, 256),
+    ("dense", (2, 12, 1024, 64), torch.float32, False, None),
+    ("ragged", (2, 3, 96, 8), torch.float32, True, 40),
+    ("ragged_bf16", (2, 6, 1000, 128), torch.bfloat16, True, None),
+    ("d128_bf16", (4, 16, 2048, 128), torch.bfloat16, True, None),
+    ("d256_f32", (2, 4, 1024, 256), torch.float32, True, None),
+    ("d256_bf16", (2, 4, 1024, 256), torch.bfloat16, True, None),
+    ("d256_f16", (2, 4, 1024, 256), torch.float16, True, None),
+    ("vit", VIT_ATTENTION, torch.bfloat16, False, None),  # every bf16 [image] ViT call
+    ("vit_f32", VIT_ATTENTION, torch.float32, False, None),  # every float32 one
+]
 
 
 def visible_fraction(S: int, causal: bool, window, flops, fa) -> float:
@@ -396,21 +466,8 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
     bytes: 2 products forward, 4 for dK/dV (it recomputes P), 3 for dQ,
     each 2*bh*S*S*d times the visible fraction; ``tflops`` is those
     products over the kernel's time."""
-    cases = [
-        ("lm", LM_ATTENTION, torch.bfloat16, True, None),  # every [lm] call
-        ("f32", LM_ATTENTION, torch.float32, True, None),
-        ("f16", LM_ATTENTION, torch.float16, True, None),
-        ("window", LM_ATTENTION, torch.bfloat16, True, 256),
-        ("dense", (2, 12, 1024, 64), torch.float32, False, None),
-        ("ragged", (2, 3, 96, 8), torch.float32, True, 40),
-        ("ragged_bf16", (2, 6, 1000, 128), torch.bfloat16, True, None),
-        ("d128_bf16", (4, 16, 2048, 128), torch.bfloat16, True, None),
-        ("d256_f32", (2, 4, 1024, 256), torch.float32, True, None),
-        ("d256_bf16", (2, 4, 1024, 256), torch.bfloat16, True, None),
-        ("d256_f16", (2, 4, 1024, 256), torch.float16, True, None),
-    ]
     rows = []
-    for seed, (label, (b, h, S, d), dtype, causal, window) in enumerate(cases):
+    for seed, (label, (b, h, S, d), dtype, causal, window) in enumerate(FLASH_CASES):
         bh = b * h
         q, k, v, go = checks.flash_inputs(bh, S, d, dtype, device, seed=seed + 1)
         kw = dict(causal=causal, window=window)
@@ -545,7 +602,7 @@ def backward_pair(rows, label, route, library_step_ms, work, dtype) -> dict:
     }
 
 
-def profile_steps(trainer, tokens, steps: int, card_name: str, compute: str) -> dict:
+def profile_steps(step, steps: int, card_name: str, compute: str, phase: str = "[lm]") -> dict:
     """Device time by kernel over a few training steps, from
     ``torch.profiler``, summed by kind of kernel (by name); the flash
     kernels' share of it and each flash kernel's time, and the share of the
@@ -559,13 +616,13 @@ def profile_steps(trainer, tokens, steps: int, card_name: str, compute: str) -> 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            trainer.train_step(tokens)
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     if device_us == 0:
-        print("[lm] profile: no device time recorded; kernel shares not measured", flush=True)
+        print(f"{phase} profile: no device time recorded; kernel shares not measured", flush=True)
         return {"device_us": None}
     kinds = {"flash": ("flash_",), "matmul": ("gemm", "nvjet", "cutlass", "sm90_xmma"),
              "elementwise": ("elementwise", "copy"), "reduce": ("reduce",),
@@ -593,7 +650,7 @@ def profile_steps(trainer, tokens, steps: int, card_name: str, compute: str) -> 
         "top_kernels": [{"name": e.key[:120], "ms_per_step": e.self_device_time_total
                          / steps / 1e3, "calls_per_step": e.count / steps} for e in top],
     }
-    print("[lm] profile", json.dumps(out), flush=True)
+    print(f"{phase} profile", json.dumps(out), flush=True)
     return out
 
 
@@ -656,7 +713,7 @@ def lm_fit(device, fa, flops, card_name, *, compute_dtype, steps_per_epoch: int,
     check(launches == expected, f"flash launches {launches}, not {expected}")
     check(all(math.isfinite(s.mean_loss) for s in history), "non-finite epoch loss")
     tokens = trainer._to_device(windows[:batch].numpy())
-    profile = profile_steps(trainer, tokens, 3, card_name, compute)
+    profile = profile_steps(lambda: trainer.train_step(tokens), 3, card_name, compute)
     del trainer, lm
     torch.cuda.empty_cache()
     return {"launches": launches, "history": history, "profile": profile}
@@ -1080,6 +1137,163 @@ def resume_path(device, fa, ops, card: str) -> dict:
     return out
 
 
+IMAGE_RESNET = ["--model", "resnet18", "--dataset", "cifar10", "--epochs", "2",
+                "--samples", "4096"]
+IMAGE_VIT = ["--model", "vit", "--dataset", "imagenet", "--epochs", "2", "--samples", "512",
+             "--batch", "128"]
+
+
+def image_demo(fa, ops, argv: list[str]) -> dict:
+    """``python -m tpu_dist_torch.demos.train_image <argv>`` in this process,
+    every launch count set to 0 just before it; the counts read at the last
+    epoch's line (training) and at the end (training and evaluation)."""
+    from tpu_dist_torch.demos import train_image
+
+    lines = []
+
+    def log(line):
+        lines.append((line, counts(fa, ops)))
+        print("[image]", line, flush=True)
+
+    zero_counts(fa, ops)
+    t0 = time.perf_counter()
+    trainer, history, accuracy = train_image.main(argv, log=log)
+    wall = time.perf_counter() - t0
+    total = counts(fa, ops)
+    fit = next(c for line, c in lines if line.startswith(f"Rank 0 of 1, epoch {len(history) - 1}:"))
+    out = {"history": history, "accuracy": accuracy, "wall": wall, "fit": fit,
+           "eval": {name: total[name] - fit[name] for name in total}}
+    print(f"[image] {' '.join(argv)}: launches in training {json.dumps(fit)}, in evaluation "
+          f"{json.dumps(out['eval'])}; entry point wall time {wall} s (data generation, set-up, "
+          "training and evaluation)", flush=True)
+    # the step alone, on a batch already on the card: against the epoch's
+    # seconds a step, what the host's batch assembly and copy add
+    size = 224 if "imagenet" in argv else 32
+    x = torch.randn(128, size, size, 3, device=trainer.device)
+    y = torch.randint(0, 10, (128,), device=trainer.device)
+    compute = "bfloat16" if argv[-2:] == ["--bf16", "1"] else "float32"
+    out["step_ms"] = time_ms(lambda: trainer.train_step(x, y), 5, graph=False)
+    print(f"[image] {argv[1]} {compute}: a step on a batch already on the card "
+          f"{out['step_ms']} ms (CUDA events around 5 steps)", flush=True)
+    out["profile"] = profile_steps(lambda: trainer.train_step(x, y), 3, card_and_power_limit(),
+                                   compute, phase=f"[image] {argv[1]} {compute}")
+    return out
+
+
+def resnet_card_against_cpu(device) -> dict:
+    """One step of ResNet-18 (batch 128, TPU_DIST_PALLAS_DENSE=1) from the
+    same state on the card and on the CPU: loss, parameters and batch-norm
+    statistics within 1e-4 (float32 sums in another order; about 3e-5 of
+    float32's own spread on the params after a step at lr 0.05)."""
+    from tpu_dist_torch import data, models, nn
+    from tpu_dist_torch.train import TrainConfig, Trainer
+
+    x, y = next(data.DistributedLoader(data.synthetic_cifar10(128, seed=0), 1, 128,
+                                       rank=0).epoch(0))
+    x, y = torch.from_numpy(x), torch.from_numpy(y)
+    cfg = TrainConfig(global_batch=128, lr=0.05, momentum=0.9, log=lambda line: None)
+    pair = [Trainer(models.resnet18(generator=torch.Generator().manual_seed(1234)), cfg,
+                    device=dev, loss=nn.cross_entropy) for dev in (device, "cpu")]
+    loss_card = pair[0].train_step(x.to(device), y.to(device)).item()
+    loss_cpu = pair[1].train_step(x, y).item()
+    cpu_state = pair[1].model.state_dict()
+    diff = {"params": 0.0, "batch-norm statistics": 0.0}
+    for name, t in pair[0].model.state_dict().items():
+        kind = "batch-norm statistics" if name.endswith((".mean", ".var")) else "params"
+        diff[kind] = max(diff[kind], (t.cpu() - cpu_state[name]).abs().max().item())
+    print(f"[image] one ResNet-18 step (batch 128, float32) from the same state: loss card "
+          f"{loss_card} cpu {loss_cpu} |diff| {abs(loss_card - loss_cpu)}; max |diff| "
+          f"{json.dumps(diff)}", flush=True)
+    check(abs(loss_card - loss_cpu) <= 1e-4, "card and CPU losses differ by more than 1e-4")
+    for kind, d in diff.items():
+        check(d <= 1e-4, f"card and CPU {kind} differ by {d}, more than 1e-4")
+    return {"loss_card": loss_card, "loss_cpu": loss_cpu, **diff}
+
+
+def image_path(device, fa, ops, checks, card: str) -> dict:
+    """[image]: the image-classification entry point at BASELINE configs 4
+    and 5, then the ViT's attention kernels at its shape."""
+    t0 = time.perf_counter()
+    os.environ["TPU_DIST_PALLAS_DENSE"] = "1"
+    os.environ["TPU_DIST_FLASH"] = "1"
+    os.environ.update(WORLD_SIZE="1", RANK="0", MASTER_ADDR="localhost")
+    os.environ.pop("MASTER_PORT", None)  # world 1: an in-process store, no port
+    none = dict.fromkeys(counts(fa, ops), 0)
+
+    # the ViT's attention shape through each route, held to the plain versions first
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, go = checks.flash_inputs(VIT_ATTENTION[0] * VIT_ATTENTION[1],
+                                          *VIT_ATTENTION[2:], dtype, device, seed=3)
+        res = checks.check_flash_kernels(q, k, v, go, causal=False, window=None)
+        print(f"[image] flash kernels at the ViT's attention {list(VIT_ATTENTION)} "
+              f"{str(dtype)[6:]}, non-causal, route {res['route']}: max |err| "
+              f"{json.dumps(res['max_abs_err'])} (tol {res['tol']})", flush=True)
+        del q, k, v, go, res
+
+    print("[image] python -m tpu_dist_torch.demos.train_image " + " ".join(IMAGE_RESNET)
+          + " (TPU_DIST_PALLAS_DENSE=1, float32, world 1)", flush=True)
+    resnet = image_demo(fa, ops, IMAGE_RESNET)
+    history = resnet["history"]
+    steps, eval_batches = 2 * 4096 // 128, math.ceil(2000 / 256)
+    fit, evaluation = resnet["fit"], resnet["eval"]
+    check(fit == {**none, "fused_dense": steps}, f"resnet18 training: launches {fit}")
+    check(evaluation == {**none, "fused_dense": eval_batches},
+          f"resnet18 evaluation: launches {evaluation}")
+    check(history[1].mean_loss < history[0].mean_loss,
+          f"epoch 1 mean loss {history[1].mean_loss} not below epoch 0's {history[0].mean_loss}")
+    check(resnet["accuracy"] >= 0.9, f"test accuracy {resnet['accuracy']} below 0.9")
+    print(f"[image] resnet18: epoch losses {[h.mean_loss for h in history]}, test accuracy "
+          f"{resnet['accuracy']}; epoch 1 (warm) {history[1].samples_per_sec} samples/s, "
+          f"{history[1].seconds} s, on {card}; fused dense {steps} in training (one a step) "
+          f"+ {eval_batches} in evaluation", flush=True)
+    step = resnet_card_against_cpu(device)
+
+    vit = {}
+    for compute, flag in (("bfloat16", "1"), ("float32", "0")):
+        print("[image] python -m tpu_dist_torch.demos.train_image " + " ".join(IMAGE_VIT)
+              + f" --bf16 {flag} (TPU_DIST_FLASH=1, TPU_DIST_PALLAS_DENSE=1)", flush=True)
+        run = vit[compute] = image_demo(fa, ops, IMAGE_VIT + ["--bf16", flag])
+        history, steps = run["history"], 2 * 512 // 128
+        route = LM_ROUTE if compute == "bfloat16" else LM_F32_ROUTE
+        fit, evaluation = run["fit"], run["eval"]
+        check(fit == {**none, "fused_dense": steps, **dict.fromkeys(route, VIT_DEPTH * steps)},
+              f"vit {compute} training: launches {fit}")
+        # evaluation runs the float32 masters, as the JAX Trainer's: the SIMT forward
+        check(evaluation == {**none, "fused_dense": 1, "flash_fwd_simt": VIT_DEPTH},
+              f"vit {compute} evaluation: launches {evaluation}")
+        check(all(math.isfinite(h.mean_loss) for h in history), "non-finite ViT loss")
+        print(f"[image] vit {compute}: epoch losses {[h.mean_loss for h in history]}, test "
+              f"accuracy {run['accuracy']}; epoch 1 (warm) {history[1].samples_per_sec} "
+              f"images/s, {history[1].seconds} s, on {card}; flash {VIT_DEPTH} x {steps} steps "
+              f"of each of {list(route)} and none of the other route in training", flush=True)
+        torch.cuda.empty_cache()
+    print(f"[image] phase {time.perf_counter() - t0} s on {card}", flush=True)
+    return {"resnet": resnet, "step": step, "vit": vit}
+
+
+def image_launches(image: dict, name: str) -> dict:
+    """A kernel's launches in each [image] run, training and evaluation
+    apart."""
+    runs = {"resnet18": image["resnet"], **{f"vit {c}": r for c, r in image["vit"].items()}}
+    return {f"{label} {part}": run[part][name] for label, run in runs.items()
+            for part in ("fit", "eval")}
+
+
+def image_dp_path(checks, card: str) -> None:
+    """`ops.checks.check_image_dp`: ResNet-18 at world 4, one card a rank."""
+    t0 = time.perf_counter()
+    res = checks.check_image_dp()
+    print(f"[image-dp] ResNet-18 Trainer, world {res['world']}, {layout(res['world'])} "
+          f"(comm.spmd, grad_reduce='psum', TPU_DIST_PALLAS_DENSE=1, synthetic CIFAR-10, global "
+          f"batch {res['global_batch']}), {res['steps']} steps: {res['tensors_compared']} "
+          f"tensors (losses, parameters, {res['batch_norm_buffers']} batch-norm buffers) the "
+          f"same bits on every rank ({res['elements_differing']} elements differ); fused dense "
+          f"per rank {res['dense_launches']}; losses {res['losses']}; per rank, the first "
+          f"step (cuDNN's and NCCL's set-up) {res['first_step_seconds']} s, steps "
+          f"2-{res['steps']} {res['later_seconds_per_step']} s a step, on {card}; phase "
+          f"{time.perf_counter() - t0} s", flush=True)
+
+
 def build_all(_build) -> None:
     """One nvcc per source, all started together."""
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -1117,8 +1331,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print("[env] TF32 off for matmul and cuDNN (float32 computed in float32)", flush=True)
 
-    if sys.argv[1:] not in ([], ["--lm-f32"], ["--nccl"], ["--resume"], ["--main"]):
-        sys.exit("usage: python3 chip_smoke.py [--lm-f32 | --nccl | --resume | --main]")
+    if sys.argv[1:] not in ([], ["--lm-f32"], ["--nccl"], ["--resume"], ["--main"], ["--image"]):
+        sys.exit("usage: python3 chip_smoke.py [--lm-f32 | --nccl | --resume | --main | --image]")
+    if sys.argv[1:] == ["--image"]:
+        build_all(_build)
+        image_head_rows(device, ops, F)
+        image_path(device, fa, ops, checks, card_and_power_limit())
+        return
     if sys.argv[1:] == ["--main"]:
         build_all(_build)
         matmul_cases(device, ops, F)
@@ -1140,6 +1359,7 @@ def main() -> None:
         build_all(_build)
         collectives_path(checks, card_and_power_limit())
         dp_path(checks, card_and_power_limit())
+        image_dp_path(checks, card_and_power_limit())
         return
 
     build_all(_build)
@@ -1152,6 +1372,7 @@ def main() -> None:
     collectives_path(checks, card_and_power_limit())
     dp = dp_path(checks, card_and_power_limit())
     resume = resume_path(device, fa, ops, card_and_power_limit())
+    image = image_path(device, fa, ops, checks, card_and_power_limit())
 
     step = rows[:2]  # the two launches of one training step
     kernel = {
@@ -1169,6 +1390,12 @@ def main() -> None:
         "library_ms": sum(r["library_ms"] for r in step),
         "launches_resume": {"train_dist, three runs": resume["mnist"]["runs_launches"],
                             "one step at accum_steps 2": resume["mnist"]["accum_launches"][2]},
+        "launches_image": image_launches(image, "fused_dense"),
+        "image_heads": [{key: r[key] for key in ("m", "k", "n", "dtype", "max_abs_err", "ms",
+                                                 "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")}
+                        for r in rows if "gradient" not in r
+                        and (r["m"], r["k"], r["n"]) in {c[:3] for c in IMAGE_HEAD_CASES}],
         "work": "one training step's two launches: 128x320x50 + 128x50x10 (MxKxN), "
                 "float32, epilogue none",
         "tiling": [r["tiling"] for r in step],
@@ -1202,6 +1429,12 @@ def main() -> None:
                 "float16 guarded fit": resume["f16"]["launches"][name]}
         else:
             entry["launches_resume"] = {"train_lm": resume["demo"]["launches"][name]}
+        entry["launches_image"] = image_launches(image, name)
+        vit_row = next(r for r in flash_rows
+                       if r["kernel"] == name and r["case"] == ("vit" if on_lm else "vit_f32"))
+        entry["vit"] = {key: vit_row[key] for key in ("q", "dtype", "causal", "max_abs_err", "ms",
+                                                      "plain_ms", "bound_ms", "bound_by",
+                                                      "library_ms", "tflops")}
         if on_lm:  # the same [lm] inputs, SIMT
             simt = next(r for r in flash_rows
                         if r["case"] == "lm" and r["kernel"] == name.replace("sm90", "simt"))

@@ -35,6 +35,8 @@ def test_importing_the_port_loads_neither_jax_nor_tpu_dist():
         "import tpu_dist_torch.demos.train_lm, tpu_dist_torch.train.checkpoint\n"
         "import tpu_dist_torch.resilience.guards, tpu_dist_torch.resilience.preempt\n"
         "import tpu_dist_torch.data.text, tpu_dist_torch.data.digits\n"
+        "import tpu_dist_torch.demos.train_image, tpu_dist_torch.data.cifar\n"
+        "import tpu_dist_torch.models.resnet, tpu_dist_torch.models.vit\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpu_dist'))\n"
         "assert not bad, bad\n"
     )

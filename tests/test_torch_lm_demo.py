@@ -30,6 +30,19 @@ REPO = Path(__file__).resolve().parents[1]
 STEPS, BATCH, SEQ, VOCAB = 12, 8, 64, 64
 
 
+# The rendezvous variables the port's init reads: a world of one here,
+# whatever another test in this process left behind.
+RENDEZVOUS_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+                  "LOCAL_WORLD_SIZE", "TPU_DIST_INIT_METHOD", "TORCHELASTIC_USE_AGENT_STORE",
+                  "TORCHELASTIC_RESTART_COUNT")
+
+
+@pytest.fixture(autouse=True)
+def _world_of_one(monkeypatch):
+    for var in RENDEZVOUS_ENV:
+        monkeypatch.delenv(var, raising=False)
+
+
 def _jax_demo_losses(tokens: np.ndarray):
     """The JAX demo's data-parallel step (demos/train_lm.py:49-126) on one
     device, ``STEPS`` steps on the fixed batch; returns the init and the

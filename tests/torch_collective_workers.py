@@ -247,3 +247,28 @@ def guarded_steps() -> dict:
     moved = not any(torch.equal(v, before[k]) for k, v in trainer.model.state_dict().items())
     return {"bad_steps": bad_steps, "scale": scale, "unchanged_after_bad": unchanged,
             "moved_after_good": moved, "params": trainer.model.state_dict()}
+
+
+def image_trainer_steps(state: dict, batches: list, backends: tuple[str, ...]) -> dict:
+    """For each gradient reduction in ``backends``, a Trainer of ResNet-18
+    (CIFAR stem; cross-entropy, lr 0.05, momentum 0.9) from ``state``, its
+    parameters and batch-norm statistics, takes one step on this rank's
+    rows of each global batch; returns, per backend, the losses and the
+    final parameters and buffers.  The model takes ``state``'s dtype."""
+    from tpu_dist_torch import nn
+
+    n, r = comm.world_size(), comm.rank()
+    out = {}
+    for backend in backends:
+        net = models.resnet18().to(next(iter(state.values())).dtype)
+        net.load_state_dict(state)
+        trainer = Trainer(net, TrainConfig(grad_reduce=backend, lr=0.05, momentum=0.9,
+                                           log=lambda line: None),
+                          device="cpu", loss=nn.cross_entropy)
+        losses = []
+        for x, y in batches:
+            rows = slice(r * len(x) // n, (r + 1) * len(x) // n)
+            losses.append(trainer.train_step(torch.from_numpy(x[rows]),
+                                             torch.from_numpy(y[rows])))
+        out[backend] = {"losses": torch.stack(losses), "state": trainer.model.state_dict()}
+    return out

@@ -9,9 +9,12 @@ parameters), so layer ``i``'s ``"w"`` is ``"i.w"``, the index of the same
 layer in a port ``Sequential``.  Only the convolution weight changes
 layout (every 4-D leaf): JAX's HWIO against torch's OIHW.  Dense weights
 are (in, out) on both sides, and the learned position table stays
-(1, max_seq, dim).  The same mapping carries any tree shaped like the
-parameters, such as optimizer moments and momentum buffers; the
-trainers' checkpoints are `jax_views` of their live tensors.
+(1, max_seq, dim), as do the ViT's 3-D ``cls`` and ``pos``.  The same
+mapping carries any tree shaped like the parameters, such as optimizer
+moments and momentum buffers, and the model state: a JAX model's
+``state`` tree (batch-norm ``mean``/``var``) is the port module's
+buffers (`load_jax`, `module_to_jax`); the trainers' checkpoints are
+`jax_views` of their live tensors.
 """
 
 from __future__ import annotations
@@ -91,3 +94,24 @@ def jax_views(state: dict[str, torch.Tensor], num_layers: int | None = None):
     tensors themselves: reading a leaf reads the tensor, writing into it
     writes the tensor."""
     return _nest(state, num_layers, jax_view)
+
+
+def num_layers(module: torch.nn.Module) -> int | None:
+    """The layer count a ``Sequential``'s JAX tree has (a tuple of
+    per-layer dicts); None for a module whose tree nests by name."""
+    return len(module) if isinstance(module, torch.nn.Sequential) else None
+
+
+def load_jax(module: torch.nn.Module, params, model_state=()) -> None:
+    """Load a JAX model's ``(params, state)`` trees into ``module``'s
+    parameters and buffers; every one of them must be given."""
+    module.load_state_dict({**params_from_jax(params), **params_from_jax(model_state)})
+
+
+def module_to_jax(module: torch.nn.Module) -> tuple:
+    """``module``'s parameters and buffers as the JAX model's ``(params,
+    state)`` trees of numpy arrays (a ``Sequential``'s as tuples of
+    per-layer dicts)."""
+    n = num_layers(module)
+    return (params_to_jax(dict(module.named_parameters()), n),
+            params_to_jax(dict(module.named_buffers()), n))

@@ -48,8 +48,8 @@ class TransformerLM(torch.nn.Module):
             )
         if moe_experts:
             raise NotImplementedError(
-                "moe_experts > 0 is not ported yet (ROADMAP queue 1, item 8: the "
-                "other LMTrainer modes)"
+                "moe_experts > 0 is not ported yet (ROADMAP queue 1, item 10: the "
+                "parallel strategies, with parallel/moe.py)"
             )
         self.vocab = vocab
         self.dim = dim

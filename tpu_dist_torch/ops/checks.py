@@ -29,6 +29,9 @@ and by ``chip_smoke.py``:
   per gradient and once for the loss each step) equal bit for bit to
   ``"psum"``, with no control-group collective after the first step, and
   a traced run of a few more ring steps (`trace_dp_steps`);
+- `check_image_dp`: the ResNet-18 Trainer at a world of ranks under
+  ``"psum"``: the batch-norm statistics ride the gradients' all-reduce, and
+  every rank ends with the same bits in every parameter and buffer;
 - `check_collectives`: every collective of `comm` on ranks sharing the card
   against its plain version on the stacked inputs;
 - `check_launch_restart`: `comm.launch` through a ``file://`` store returns
@@ -790,6 +793,93 @@ def check_dp(world: int = DP_WORLD, steps: int = DP_STEPS, seed: int = 0) -> dic
             "losses": ring["losses"][0].tolist(),
             "elements_differing": sum(differing.values()),
             "trace": {k: v.tolist() for k, v in trace.items()}}
+
+
+IMAGE_DP_WORLD, IMAGE_DP_STEPS, IMAGE_DP_BATCH = 4, 10, 128
+
+
+def _image_dp_rank(steps: int, batch: int, seed: int, device_type: str) -> dict:
+    """One rank of `check_image_dp`: ResNet-18 (CIFAR stem, cross-entropy, lr
+    0.05, momentum 0.9, the fused dense head) from a seed, ``steps`` steps
+    under "psum" on this rank's share of each global batch of synthetic
+    CIFAR-10; its losses, final parameters and buffers, fused-dense
+    launches (set to 0 just before the steps, read just after), the first
+    step's seconds (cuDNN's and NCCL's set-up) and the later steps' seconds
+    a step."""
+    import os
+
+    from tpu_dist_torch import data, models, nn
+    from tpu_dist_torch.ops import fused_dense
+    from tpu_dist_torch.train import TrainConfig, Trainer
+
+    os.environ["TPU_DIST_PALLAS_DENSE"] = "1"
+    if device_type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        device = torch.device("cpu")
+    n, r = comm.world_size(), comm.rank()
+    loader = data.DistributedLoader(data.synthetic_cifar10(batch * steps, seed=seed), n, batch,
+                                    rank=r)
+    batches = [(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+               for x, y in loader.epoch(0)]
+    _require(len(batches) == steps, f"{len(batches)} batches, not {steps}")
+    # every rank builds from its own seed: the Trainer's broadcast makes them rank 0's
+    net = models.resnet18(generator=torch.Generator().manual_seed(seed + r))
+    trainer = Trainer(net, TrainConfig(global_batch=batch, lr=0.05, momentum=0.9,
+                                       log=lambda line: None), device=device,
+                      loss=nn.cross_entropy)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    comm.barrier()
+    fused_dense.launches = 0
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(*batches[0])]
+    sync()
+    t1 = time.perf_counter()
+    losses += [trainer.train_step(x, y) for x, y in batches[1:]]
+    sync()
+    return {"losses": torch.stack(losses), "dense_launches": fused_dense.launches,
+            "first_step_seconds": t1 - t0,
+            "later_seconds_per_step": (time.perf_counter() - t1) / max(steps - 1, 1),
+            "state": {k: v.clone() for k, v in trainer.model.state_dict().items()}}
+
+
+def check_image_dp(world: int = IMAGE_DP_WORLD, steps: int = IMAGE_DP_STEPS,
+                   batch: int = IMAGE_DP_BATCH, seed: int = 0, device: str = "cuda") -> dict:
+    """ResNet-18 at ``world`` ranks (one card each where the host has them),
+    ``grad_reduce="psum"``: each step one flat all-reduce carries the
+    gradients, the loss and the batch-norm statistics, so every rank's
+    parameters and buffers hold the same bits after ``steps`` steps; the
+    losses finite and the same on every rank; the fused dense
+    head launched once a step on every rank.  ``device="cpu"`` runs it on
+    CPU ranks over Gloo (the head's plain version: no launch)."""
+    res = comm.spmd(_image_dp_rank, steps, batch, seed, device, world=world, device=device,
+                    timeout=900)
+    losses = res["losses"]
+    _require(bool(torch.isfinite(losses).all()), "non-finite loss")
+    launches = steps if device == "cuda" else 0  # CPU tensors take the plain version
+    _require(res["dense_launches"].tolist() == [launches] * world,
+             f"fused dense launches per rank {res['dense_launches'].tolist()}, not {launches}")
+    differing = {name: sum(_bits_differing(t[q], t[0]) for q in range(world))
+                 for name, t in [("losses", losses), *res["state"].items()]}
+    bad = {name: d for name, d in differing.items() if d}
+    _require(not bad, f"ranks hold different bits in {bad}")
+    buffers = [name for name in res["state"] if name.endswith((".mean", ".var"))]
+    _require(len(buffers) == 40, f"{len(buffers)} batch-norm buffers, not 40 (20 layers)")
+    return {"world": world, "steps": steps, "global_batch": batch,
+            "losses": losses[0].tolist(),
+            "first_step_seconds": res["first_step_seconds"].tolist(),
+            "later_seconds_per_step": res["later_seconds_per_step"].tolist(),
+            "dense_launches": res["dense_launches"].tolist(),
+            "tensors_compared": len(differing), "batch_norm_buffers": len(buffers),
+            "elements_differing": sum(differing.values())}
 
 
 # ------------------------------------------------------------ the launcher

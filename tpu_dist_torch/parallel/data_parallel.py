@@ -14,7 +14,9 @@ chunked ring on the CPU.
 
 `accumulate_gradients` is the backward of one step, with gradient
 accumulation over microbatches and the guard's loss scale
-(tpu_dist/parallel/data_parallel.py:140-187, 253-288).
+(tpu_dist/parallel/data_parallel.py:140-187, 253-288); the microbatches
+run in order, so a model's batch-norm statistics thread through them as
+the JAX scan carries its state.
 """
 
 from __future__ import annotations
@@ -55,7 +57,12 @@ def check_backend(backend: str) -> None:
         raise ValueError(f"unknown grad-reduce backend {backend!r}")
 
 
-def average_gradients(tensors: Sequence[torch.Tensor], *, backend: str = "psum") -> None:
+def average_gradients(
+    tensors: Sequence[torch.Tensor],
+    *,
+    backend: str = "psum",
+    state: Sequence[torch.Tensor] = (),
+) -> None:
     """Replace each tensor, in place, by its mean over all ranks
     (train_dist.py:94-100): gradients, and the step's loss riding along.
 
@@ -64,11 +71,20 @@ def average_gradients(tensors: Sequence[torch.Tensor], *, backend: str = "psum")
     on a CUDA tensor is one launch of the ring kernel (enqueued on the
     current stream, no host sync) and on a CPU tensor the chunked ring.
     The compressed backends ``"int8"``, ``"fp8"`` and ``"bf16"`` come with
-    `comm/compress.py` (ROADMAP queue 1, item 10)."""
+    `comm/compress.py` (ROADMAP queue 1, item 10).
+
+    ``state``: the model's floating buffers (batch-norm statistics), also
+    replaced by their mean over ranks whatever the backend, as the JAX
+    step pmeans its new state's floating leaves
+    (tpu_dist/parallel/data_parallel.py:129-135).  Under ``"psum"`` they
+    share the gradients' flat all-reduce; under ``"ring"`` they take one
+    flat all-reduce of their own."""
     check_backend(backend)
     if backend == "psum":
-        _through_buckets(tensors, lambda flat: all_reduce(flat, ReduceOp.AVG))
+        _through_buckets([*tensors, *state], lambda flat: all_reduce(flat, ReduceOp.AVG))
         return
+    if state:
+        _through_buckets(state, lambda flat: all_reduce(flat, ReduceOp.AVG))
     # imported here: ops.pallas_ring imports this package's ring module
     from tpu_dist_torch.ops.pallas_ring import ring_all_reduce_pallas
 

@@ -1,27 +1,33 @@
 """The training loop: ``run(rank, size)`` of the reference, one process per
 rank over ``torch.distributed``.
 
-Per batch: forward, ``nll_loss``, backward (over ``accum_steps``
-microbatches, the loss scaled under the guard's ``loss_scale``),
-`average_gradients` (by default one flat all-reduce; with
-``grad_reduce="ring"`` one ring call per tensor; either way the loss rides
-along, so every rank reports the global batch's mean loss, as the JAX
-Trainer does), SGD step (under ``nan_guard`` computed out of place and
-kept only when every gradient is finite).  Per epoch: the mean loss and
+Per batch: forward, the loss (``nll_loss`` by default, ``cross_entropy``
+for the image models), backward (over ``accum_steps`` microbatches, the
+loss scaled under the guard's ``loss_scale``), `average_gradients` (by
+default one flat all-reduce; with ``grad_reduce="ring"`` one ring call per
+tensor; either way the loss rides along, so every rank reports the
+global batch's mean loss, as the JAX Trainer does, and the model's
+floating buffers, its batch-norm statistics, are averaged over ranks as
+the JAX step pmeans its model state), SGD step (under ``nan_guard``
+computed out of place and kept only when every gradient is finite).  Per epoch: the mean loss and
 samples/s, read from the device once, the held-out accuracy given
 ``eval_dataset``, ``bad_steps`` under the guard, and given
 ``checkpoint_dir`` an asynchronous ``ckpt_<epoch>.npz``.  Without a
 process group the Trainer runs a world of one and issues no collective.
 
-Checkpoints hold ``{"params", "model_state", "opt_state"}`` in the JAX
-package's layout (`interop`: convolution weights and their momentum
-buffers HWIO), so either package's `Trainer.restore` reads the other's.
+The model's state is its buffers: batch norm updates them in place in
+training (once a step under ``remat``: the recompute leaves them alone),
+each microbatch in turn, and evaluation reads them.  Checkpoints hold
+``{"params", "model_state", "opt_state"}`` in the JAX package's layout
+(`interop`: convolution weights and their momentum buffers HWIO), so
+either package's `Trainer.restore` reads the other's.
 The profiler trace (``trace_dir``), telemetry and in-flight steps wait for
 resilience and observability (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Callable
@@ -36,6 +42,7 @@ from tpu_dist_torch import interop
 from tpu_dist_torch.comm.collectives import all_reduce
 from tpu_dist_torch.data.loader import DistributedLoader
 from tpu_dist_torch.device import resolve_device
+from tpu_dist_torch.nn.layers import frozen_statistics
 from tpu_dist_torch.nn.losses import nll_loss
 from tpu_dist_torch.parallel.data_parallel import (
     accumulate_gradients,
@@ -93,7 +100,7 @@ class TrainConfig:
     # (the ring kernel on the card); both exact.
     grad_reduce: str = "psum"
     # Forward and backward on a copy of the float32 masters in this type
-    # ("bfloat16", "float16"); the loss in float32.
+    # ("bfloat16", "float16"); the loss in float32; buffers stay float32.
     compute_dtype: str | None = None
     # Recompute the forward during the backward (torch.utils.checkpoint).
     remat: bool = False
@@ -118,15 +125,18 @@ class EpochStats:
 
 
 class Trainer:
-    """Data-parallel SGD for a `tpu_dist_torch.nn.Sequential` classifier.
+    """Data-parallel SGD for a classifier: a `tpu_dist_torch.nn.Sequential`
+    (the ConvNet, ResNet-18) or a module with the same call, ``model(x,
+    generator)`` (the ViT).
 
     The model arrives initialized; the Trainer moves it to ``device`` and,
     in a process group, overwrites every rank's parameters and buffers
     with rank 0's, so the replicas start equal however each rank built its
-    model.  ``seed`` drives the data order and, per rank and epoch, the
-    dropout generator.  ``optimizer`` is torch's SGD; ``rule`` its
-    `Optimizer` form (under ``nan_guard``, guarded) and ``opt_state`` the
-    state in the JAX layout's structure, its tensors torch's buffers."""
+    model.  ``loss(scores, labels)`` is the training loss.  ``seed``
+    drives the data order and, per rank and epoch, the dropout generator.
+    ``optimizer`` is torch's SGD; ``rule`` its `Optimizer` form (under
+    ``nan_guard``, guarded) and ``opt_state`` the state in the JAX layout's
+    structure, its tensors torch's buffers."""
 
     def __init__(
         self,
@@ -134,8 +144,10 @@ class Trainer:
         config: TrainConfig | None = None,
         *,
         device: str | torch.device | None = None,
+        loss: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = nll_loss,
     ):
         self.device = resolve_device(device)
+        self.loss = loss
         self.config = config or TrainConfig()
         check_backend(self.config.grad_reduce)
         self.compute_dtype = compute_dtype_of(self.config.compute_dtype)
@@ -149,6 +161,8 @@ class Trainer:
             broadcast_parameters(self.model)
         self.named_params = dict(self.model.named_parameters())
         self.params = list(self.named_params.values())
+        # the model's state (batch-norm statistics): averaged over ranks every step
+        self.float_buffers = [b for b in self.model.buffers() if b.is_floating_point()]
         self.optimizer = sgd(self.params, self.config.lr, self.config.momentum)
         self.rule = guarded(sgd_rule(self.optimizer), self.config)
         self.opt_state = self.rule.init(self.named_params)
@@ -180,17 +194,23 @@ class Trainer:
 
     def _loss(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         if not self.config.remat:
-            return nll_loss(self._scores(x), y)
+            return self.loss(self._scores(x), y)
         # The recompute draws the same dropout bits: it starts the
         # generator where the forward started it, and leaves it where the
-        # forward left it.
+        # forward left it.  It leaves the batch-norm statistics alone: the
+        # forward has updated them, as jax.checkpoint returns the new state
+        # once.
         start = self.generator.get_state()
 
         def forward(x):
             self.generator.set_state(start)
             return self._scores(x)
 
-        return nll_loss(remat_call(forward, x, use_reentrant=False), y)
+        scores = remat_call(
+            forward, x, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), frozen_statistics(self.model)),
+        )
+        return self.loss(scores, y)
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """One SGD step on this rank's batch; returns the loss averaged over
@@ -205,7 +225,8 @@ class Trainer:
         if cfg.nan_guard:
             poison_if_nonfinite(grads, loss)
         if self.distributed:
-            average_gradients(grads + [loss], backend=cfg.grad_reduce)
+            average_gradients(grads + [loss], backend=cfg.grad_reduce,
+                              state=self.float_buffers)
         self.rule.update(self.named_params, dict(zip(self.named_params, grads)), self.opt_state)
         return loss.reshape(())
 
@@ -214,7 +235,7 @@ class Trainer:
     def _ckpt_tree(self) -> dict:
         """The checkpointed state in the JAX Trainer's layout, as views of
         the live tensors: `save` copies them, `restore` writes into them."""
-        n = len(self.model)
+        n = interop.num_layers(self.model)
         return {
             "params": jax_layout(self.named_params, self.named_params, n),
             "model_state": interop.jax_views(dict(self.model.named_buffers()), n),
@@ -307,7 +328,9 @@ class Trainer:
 
     @torch.no_grad()
     def evaluate(self, dataset, *, batch_size: int = 1024) -> float:
-        """Top-1 accuracy with dropout off.  Every sample is scored: the
+        """Top-1 accuracy with dropout off and the running batch-norm
+        statistics, in float32 (``compute_dtype`` aside, as the JAX
+        Trainer evaluates).  Every sample is scored: the
         trailing partial batch is zero-padded to the batch shape and the
         padding left out of the count.  Ranks take batches in turn and sum
         their counts."""
