@@ -116,6 +116,28 @@ the exit code is nonzero:
           kernel of the route (tensor-core for bfloat16, SIMT for float32)
           and none of the other, in evaluation (float32 masters) 12 SIMT
           forwards; losses, images/s, a resident step and its profile.
+[serve]   the GPT-2-small-class LM trained for 150 steps on the Markov corpus
+          (`LMTrainer`, bfloat16), then served in float32 and in bfloat16
+          (params and cache cast) by ``ServeEngine`` (max_batch 16, block 16,
+          1,024 blocks, max_seq 1,024, prefill chunks of 128, 4 a round):
+          48 seeded requests (prompts of 32-512 corpus tokens, 16-256 new;
+          two thirds greedy, one third sampled at temperature 0.8, top_k 50,
+          top_p 0.95; one cancelled mid-stream, one with a stop token).
+          Gates: (1) every request finishes with its reason, the pool
+          drains; (2) each greedy stream equals dense ``generate`` up to a
+          first difference, which must be a tie (dense's top-2 margin under
+          `SERVE_TIE`), ties under 1 % of the compared positions; (3) each
+          sampled stream equals the same request alone through a fresh
+          engine; (4) float32 ``apply_cached`` logits (2 x 256 prefill, 8
+          decode steps) card against CPU; (5) ``generate_beam(beams=1)`` is
+          greedy ``generate``, beams=4 sorted; (6) ``save_params`` then
+          ``LMServer.from_artifact`` (meta-device structure) serves the same
+          greedy tokens; (7) every event passes ``validate_dir``; (8) no
+          hand-written kernel launches once training is done, with
+          TPU_DIST_FLASH=1 and TPU_DIST_PALLAS_DENSE=1.  Reported: tokens/s,
+          TTFT and TPOT p50/p99, static ``generate`` at batch 16 beside it,
+          weights and pool bytes, peak memory, a decode step's launches and
+          busy share (``torch.profiler``), the phase's seconds.
 
 Then one JSON line per kernel (with its launches in each [image] run and
 its ``vit`` row of [flash]), the card's name and power limit, and the
@@ -146,6 +168,10 @@ runs only [env], the build and [resume]; no result line.
 runs only [env], the build, [matmul]'s image-head cases and [image], to
 compare it between two trees
 (run this file from each tree's root); no result line.
+
+    python3 chip_smoke.py --serve
+
+runs only [env], the build and [serve]; no result line.
 
     python3 chip_smoke.py --main
 
@@ -1294,6 +1320,426 @@ def image_dp_path(checks, card: str) -> None:
           f"{time.perf_counter() - t0} s", flush=True)
 
 
+SERVE_CONFIG = dict(max_batch=16, block_size=16, num_blocks=1024, max_seq=1024,
+                    prefill_chunk=128, prefill_batch=4)
+SERVE_REQUESTS = 48
+SERVE_TRAIN = (150, 256, 128)  # steps, global batch, window: the Markov corpus, bfloat16
+SERVE_CHAIN = 0  # seed of the one Markov chain: training windows, prompts and the check
+SERVE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+# A greedy stream of the engine may leave dense `generate`'s only where
+# dense's top-2 logit margin is under this share of its top logit's size (at
+# least 1), about ten times the two paths' honest spread or more, which
+# `serve_noise_floor` prints: float32 1e-3 against a spread of about 3e-6;
+# bfloat16 2**-3 against about 1.3e-2 (logits out of 12 blocks that each
+# round to 8 significant bits after matmuls whose shapes differ between the
+# paths: 16 slots and 128-token chunks against one stream and one prefill).
+# A wrong engine leaves dense where the margin is wide, or too often: ties
+# must stay under 1 % of the compared positions.
+SERVE_TIE = {torch.float32: 1e-3, torch.bfloat16: 2.0**-3}
+SERVE_CARD_CPU_TOL = dict(rtol=1e-4, atol=1e-3)  # float32 logits, sums in another order
+
+
+def serve_corpus(model: dict, n: int):
+    """The Markov chain of seed `SERVE_CHAIN`: ``SERVE_TRAIN``'s training
+    windows, 64 held-out windows, and ``n`` request rows of 512 tokens, all
+    following ``markov_table(vocab, seed=SERVE_CHAIN)``."""
+    from tpu_dist_torch import models
+
+    steps, batch, seq = SERVE_TRAIN
+    rows = steps * batch
+    corpus = models.synthetic_tokens(rows + 64 + n, 512, model["vocab"], seed=SERVE_CHAIN)
+    return corpus[:rows, :seq], corpus[rows : rows + 64, :seq], corpus[rows + 64 :].numpy()
+
+
+def serve_load(model: dict, rows, seed: int = 0) -> list[dict]:
+    """One request a corpus row (seeded): prompts of 32-512 tokens, 16-256
+    new; every third sampled (`SERVE_SAMPLING`, seed = its index); request 0
+    (greedy, 256 new) to be cancelled mid-stream, request 1 (greedy) with
+    the chain's 8th token after its prompt as stop token."""
+    import numpy as np
+
+    from tpu_dist_torch import models
+
+    rng = np.random.default_rng(seed)
+    load = []
+    for i, row in enumerate(rows):
+        plen, new = int(rng.integers(32, 513)), int(rng.integers(16, 257))
+        load.append({"prompt": row[:plen], "max_new": new, "sampled": i % 3 == 2,
+                     "stop": None})
+    load[0]["max_new"] = 256
+    table, cur = models.markov_table(model["vocab"], seed=SERVE_CHAIN), load[1]["prompt"][-1]
+    for _ in range(8):
+        cur = table[cur]
+    load[1].update(stop=int(cur), max_new=max(load[1]["max_new"], 32))
+    return load
+
+
+def serve_train(device, fa, ops, model: dict, windows, held_out):
+    """The LM trained briefly on the Markov corpus with `LMTrainer` in
+    bfloat16, so that greedy continuations are decisive; returns it and the
+    launches its training made."""
+    from tpu_dist_torch import models
+    from tpu_dist_torch.train import LMTrainConfig, LMTrainer
+
+    steps, batch, seq = SERVE_TRAIN
+    lm = models.TransformerLM(**model, generator=torch.Generator().manual_seed(0))
+    trainer = LMTrainer(lm, LMTrainConfig(global_batch=batch, compute_dtype="bfloat16",
+                                          log=lambda line: None), device=device)
+    zero_counts(fa, ops)
+    t0 = time.perf_counter()
+    history = trainer.fit(windows, epochs=1, val_windows=held_out)
+    launches = counts(fa, ops)
+    print(f"[serve] training: LMTrainer.fit, {steps} steps of {batch} x {seq} Markov tokens, "
+          f"bfloat16 compute: mean loss {history[0].mean_loss}, final held-out loss "
+          f"{history[0].val_loss} (float32, 64 windows), {time.perf_counter() - t0} s; "
+          f"launches {json.dumps(launches)}", flush=True)
+    check(math.isfinite(history[0].val_loss), "non-finite held-out loss")
+    return trainer.lm, launches
+
+
+def serve_percentiles(values: list) -> dict:
+    import numpy as np
+
+    values = [v for v in values if v is not None]
+    return {"p50": float(np.percentile(values, 50)), "p99": float(np.percentile(values, 99))}
+
+
+def serve_engine_run(lm, load, device) -> dict:
+    """The load through a `ServeEngine` (after `warmup`), request 0 cancelled
+    once it has 8 tokens; gate 1 on the results."""
+    from tpu_dist_torch import serve
+
+    eng = serve.ServeEngine(lm, serve.ServeConfig(**SERVE_CONFIG), device=device,
+                            now=time.perf_counter)
+    eng.warmup()
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    rids = [eng.submit(r["prompt"], r["max_new"], stop_token=r["stop"],
+                       sampling=serve.SamplingParams(**SERVE_SAMPLING, seed=i)
+                       if r["sampled"] else None)
+            for i, r in enumerate(load)]
+    victim = None
+    while eng.pending:
+        eng.step()
+        if victim is None:
+            victim = next((q for q in eng.slots if q is not None and q.request_id == rids[0]
+                           and len(q.tokens) >= 8), None)
+            if victim is not None:
+                check(eng.cancel(rids[0]), "cancel of an in-flight request refused")
+    wall = time.perf_counter() - t0
+    res = [eng.results[r] for r in rids]
+    # gate 1: every request finished with the right reason; the pool drained
+    emitted = sum(r.emitted for r in res)
+    check(res[0].finish_reason == "cancelled" and 0 < res[0].emitted < load[0]["max_new"],
+          f"request 0: {res[0].finish_reason}, {res[0].emitted} tokens")
+    stop = load[1]["stop"]
+    stopped = stop in res[1].tokens.tolist()
+    check(res[1].finish_reason == ("stop" if stopped else "length")
+          and (res[1].tokens.tolist().index(stop) == res[1].emitted - 1 if stopped
+               else res[1].emitted == load[1]["max_new"]),
+          f"request 1 (stop token {stop}): {res[1].finish_reason}, {res[1].tokens.tolist()}")
+    for r, q in zip(res[2:], load[2:]):
+        check(r.finish_reason == "length" and r.emitted == q["max_new"],
+              f"request {r.request_id}: {r.finish_reason}, {r.emitted} of {q['max_new']}")
+    check(eng.allocator.used == 0, f"{eng.allocator.used} KV blocks still allocated")
+    out = {"engine": eng, "context_len": eng.context_len, "results": res, "wall": wall, "emitted": emitted,
+           "tokens_per_s": emitted / wall, "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+           "ttft": serve_percentiles([r.ttft for r in res]),
+           "tpot": serve_percentiles([r.tpot_mean for r in res]),
+           "high_water": eng.allocator.high_water, "steps": eng.step_count,
+           "decode_steps": eng.steps_with_decode, "prefill_steps": eng.steps_with_prefill}
+    return out
+
+
+def serve_greedy_against_dense(lm, load, run, dtype) -> dict:
+    """Gate 2: each greedy stream against dense `generate` of its prompt, up
+    to the first position where they differ, which must be a tie (dense's
+    top-2 margin under `SERVE_TIE`)."""
+    import numpy as np
+
+    from tpu_dist_torch import models
+
+    ctx = run["context_len"]
+    device = lm.embed.table.device
+    table = models.markov_table(lm.vocab, seed=SERVE_CHAIN)
+    compared, ties, chain, chain_total = 0, [], 0, 0
+    for i, (q, r) in enumerate(zip(load, run["results"])):
+        if q["sampled"]:
+            continue
+        got = r.tokens
+        prompt = torch.from_numpy(q["prompt"]).to(device)
+        dense = lm.generate(prompt[None], q["max_new"], cache_len=ctx,
+                            stop_token=q["stop"])[0].cpu().numpy()[: got.size]
+        prev = np.concatenate([q["prompt"][-1:], got[:-1]])
+        chain += int((table[prev] == got).sum())
+        chain_total += got.size
+        differ = np.nonzero(got != dense)[0]
+        if differ.size == 0:
+            compared += got.size
+            continue
+        j = int(differ[0])
+        compared += j + 1
+        seq = torch.cat([prompt, torch.from_numpy(dense[:j]).to(device)])[None]
+        with torch.no_grad():
+            logits = lm.apply_cached(seq, lm.init_cache(1, ctx), 0)[0][0, -1].float()
+        top2 = logits.topk(2).values.tolist()
+        margin, tol = top2[0] - top2[1], SERVE_TIE[dtype] * max(1.0, abs(top2[0]))
+        check(margin < tol, f"request {i}: the engine's greedy token {int(got[j])} at position "
+              f"{j} differs from dense generate's {int(dense[j])} where dense's top-2 margin "
+              f"{margin} is not under the tie tolerance {tol}")
+        ties.append({"request": i, "position": j, "margin": margin, "tol": tol})
+    share = len(ties) / compared
+    check(share < 0.01, f"tie share {share} of {compared} compared positions not under 1 %")
+    return {"compared": compared, "ties": ties, "tie_share": share,
+            "chain_share": chain / chain_total}
+
+
+def serve_noise_floor(lm, load, ctx: int) -> float:
+    """The spread of dense logits between two honest orders of the same
+    work: the last prompt position's logits after one prefill against after
+    prefill chunks of ``SERVE_CONFIG["prefill_chunk"]``, for 8 greedy
+    prompts longer than a chunk; the largest difference as a share of the
+    top logit's size (at least 1).  Printed beside the ties of gate 2."""
+    device = lm.embed.table.device
+    chunk = SERVE_CONFIG["prefill_chunk"]
+    prompts = [q["prompt"] for q in load if not q["sampled"] and q["prompt"].size > chunk][:8]
+    worst = 0.0
+    with torch.no_grad():
+        for p in prompts:
+            tok = torch.from_numpy(p).to(device)[None]
+            whole = lm.apply_cached(tok, lm.init_cache(1, ctx), 0)[0][0, -1].float()
+            cache = lm.init_cache(1, ctx)
+            for start in range(0, p.size, chunk):
+                part = lm.apply_cached(tok[:, start : start + chunk], cache, start)[0]
+            parts = part[0, -1].float()
+            scale = max(1.0, whole.abs().max().item())
+            worst = max(worst, (whole - parts).abs().max().item() / scale)
+    return worst
+
+
+def serve_sampled_alone(lm, load, run, device) -> int:
+    """Gate 3: each sampled request alone through a fresh engine gives the
+    tokens it had beside the others."""
+    from tpu_dist_torch import serve
+
+    n = 0
+    for i, (q, r) in enumerate(zip(load, run["results"])):
+        if not q["sampled"]:
+            continue
+        eng = serve.ServeEngine(lm, serve.ServeConfig(**SERVE_CONFIG), device=device)
+        rid = eng.submit(q["prompt"], q["max_new"],
+                         sampling=serve.SamplingParams(**SERVE_SAMPLING, seed=i))
+        alone = eng.run_until_drained()[rid].tokens
+        check(alone.tolist() == r.tokens.tolist(),
+              f"sampled request {i}: alone {alone.tolist()[:16]}... beside the others "
+              f"{r.tokens.tolist()[:16]}...")
+        n += 1
+        del eng
+    return n
+
+
+def serve_card_against_cpu(lm, model: dict) -> float:
+    """Gate 4: `apply_cached` logits of a 2 x 256 prefill then 8
+    teacher-forced decode steps, float32, card against CPU."""
+    from tpu_dist_torch import models
+
+    with torch.device("meta"):
+        cpu_lm = models.TransformerLM(**model)
+    cpu_lm = cpu_lm.to_empty(device="cpu")
+    cpu_lm.load_state_dict({k: v.cpu() for k, v in lm.state_dict().items()})
+    tokens = models.synthetic_tokens(2, 264, model["vocab"], seed=5)
+    outs = []
+    for m in (lm, cpu_lm):
+        tok = tokens.to(m.embed.table.device)
+        with torch.no_grad():
+            cache = m.init_cache(2, model["max_seq"])
+            logits = [m.apply_cached(tok[:, :256], cache, 0)[0][:, -1]]
+            for t in range(256, 264):
+                logits.append(m.apply_cached(tok[:, t : t + 1], cache, t)[0][:, 0])
+        outs.append(torch.stack(logits).cpu())
+    diff = (outs[0] - outs[1]).abs().max().item()
+    torch.testing.assert_close(outs[0], outs[1], **SERVE_CARD_CPU_TOL)
+    return diff
+
+
+def serve_beam(lm, load) -> None:
+    """Gate 5: ``generate_beam(beams=1)`` is greedy `generate`; ``beams=4``
+    returns its scores best first."""
+    device = lm.embed.table.device
+    prompt = torch.from_numpy(load[3]["prompt"][-64:]).to(device)[None].repeat(2, 1)
+    greedy = lm.generate(prompt, 32)
+    check(torch.equal(lm.generate_beam(prompt, 32, beams=1), greedy),
+          "generate_beam(beams=1) differs from greedy generate")
+    toks, scores = lm.generate_beam(prompt, 32, beams=4, return_all=True)
+    check(toks.shape == (2, 4, 32) and bool((scores[:, :-1] >= scores[:, 1:]).all()),
+          f"beam scores not sorted best first: {scores.tolist()}")
+
+
+def serve_artifact(lm, weights_f32, model: dict, load, device, tmp: str, dtype) -> None:
+    """Gate 6: `save_params` of the float32 weights, then
+    `LMServer.from_artifact` into a structure of ``dtype`` built on the meta
+    device, serves the same greedy tokens as a server around ``lm``."""
+    from tpu_dist_torch import export, models, serve
+
+    path = os.path.join(tmp, "weights.npz")
+    if not os.path.exists(path):
+        export.save_params(weights_f32, path)
+    with torch.device("meta"):
+        like = models.TransformerLM(**model).to(dtype)
+    cfg = serve.ServeConfig(**SERVE_CONFIG)
+    servers = [serve.LMServer(lm, cfg, device=device),
+               serve.LMServer.from_artifact(like, path, cfg, device=device)]
+    for (name, p), loaded in zip(lm.named_parameters(), servers[1].lm.parameters()):
+        check(torch.equal(p, loaded), f"{name} differs after from_artifact")
+    greedy = [q for q in load[2:] if not q["sampled"]][:4]
+    toks = []
+    for srv in servers:
+        rids = [srv.submit(q["prompt"], 32) for q in greedy]
+        res = srv.run_until_drained()
+        toks.append([res[r].tokens.tolist() for r in rids])
+    check(toks[0] == toks[1], "from_artifact serves other greedy tokens")
+
+
+def serve_static(lm, load) -> dict:
+    """Static batching for comparison: `generate` at batch 16, each batch's
+    prompts left-padded to its longest and run to its longest output
+    (greedy)."""
+    device = lm.embed.table.device
+    useful, padded, t0 = 0, 0, time.perf_counter()
+    batch = SERVE_CONFIG["max_batch"]
+    for b in range(0, len(load), batch):
+        group = load[b : b + batch]
+        width = max(q["prompt"].size for q in group)
+        steps = max(q["max_new"] for q in group)
+        prompt = torch.zeros((len(group), width), dtype=torch.int64)
+        for row, q in enumerate(group):
+            prompt[row, width - q["prompt"].size :] = torch.from_numpy(q["prompt"])
+        lm.generate(prompt.to(device), steps, cache_len=SERVE_CONFIG["max_seq"]).cpu()
+        useful += sum(q["max_new"] for q in group)
+        padded += len(group) * steps
+    wall = time.perf_counter() - t0
+    return {"wall": wall, "tokens_per_s": useful / wall, "padded_tokens_per_s": padded / wall}
+
+
+def serve_profile(lm, load, device, card: str, compute: str) -> dict:
+    """Launches and busy share of 5 decode steps with every slot active."""
+    from tpu_dist_torch import serve
+
+    eng = serve.ServeEngine(lm, serve.ServeConfig(**SERVE_CONFIG), device=device)
+    for i in range(SERVE_CONFIG["max_batch"]):
+        eng.submit(load[i % len(load)]["prompt"][:32], 64)
+    while eng._prefillq or eng.queue:
+        eng.step()
+    out = profile_steps(eng.step, 5, card, compute, phase=f"[serve] {compute} decode step")
+    check(eng.occupancy() == SERVE_CONFIG["max_batch"], "profiled decode steps not full")
+    return out
+
+
+def serve_path(device, fa, ops, card: str, model: dict = GPT2_SMALL,
+               n_requests: int = SERVE_REQUESTS) -> dict:
+    """[serve]: the LM trained briefly, then served in float32 and bfloat16
+    under gates 1-8; no hand-written kernel launches once training is done."""
+    import copy
+    import tempfile
+
+    from tpu_dist_torch.observe import events as ev_mod
+
+    t0 = time.perf_counter()
+    os.environ["TPU_DIST_FLASH"] = "1"
+    os.environ["TPU_DIST_PALLAS_DENSE"] = "1"
+    windows, held_out, rows = serve_corpus(model, n_requests)
+    trained, train_launches = serve_train(device, fa, ops, model, windows, held_out)
+    load = serve_load(model, rows)
+    zero_counts(fa, ops)  # from here on, serving only
+    ops.ring_all_reduce_pallas.launches = 0
+    out = {"train_launches": train_launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in (torch.float32, torch.bfloat16):
+            t1 = time.perf_counter()
+            compute = str(dtype)[6:]
+            lm = trained if dtype == torch.float32 else copy.deepcopy(trained).to(dtype)
+            # every engine of this dtype logs to one directory (gate 7)
+            events_dir = os.path.join(tmp, f"events_{compute}")
+            os.environ["TPU_DIST_TELEMETRY"] = events_dir
+            run = serve_engine_run(lm, load, device)
+            eng = run.pop("engine")
+            print(f"[serve] {compute}: ServeEngine {json.dumps(SERVE_CONFIG)}, "
+                  f"{len(load)} requests ({sum(not q['sampled'] for q in load)} greedy, "
+                  f"{sum(q['sampled'] for q in load)} sampled at {json.dumps(SERVE_SAMPLING)}): "
+                  f"{run['emitted']} tokens in {run['wall']} s, {run['tokens_per_s']} tokens/s; "
+                  f"TTFT {json.dumps(run['ttft'])} s, TPOT {json.dumps(run['tpot'])} s; "
+                  f"{run['steps']} steps ({run['decode_steps']} with a decode step, "
+                  f"{run['prefill_steps']} with a prefill round); pool high water "
+                  f"{run['high_water']} of {SERVE_CONFIG['num_blocks']} blocks, drained; "
+                  f"weights {eng.weights_bytes} bytes, KV pool {eng.kv_pool_bytes} bytes "
+                  f"({eng.kv_block_bytes} a block); peak memory {run['peak_gb']} GB; "
+                  f"request 0 cancelled after {run['results'][0].emitted} tokens, request 1 "
+                  f"{run['results'][1].finish_reason} after {run['results'][1].emitted}; on "
+                  f"{card}", flush=True)
+            del eng
+            secs = {"engine": time.perf_counter() - t1}
+
+            def timed(name, fn, *args):
+                t = time.perf_counter()
+                value = fn(*args)
+                secs[name] = time.perf_counter() - t
+                return value
+
+            floor = timed("noise floor", serve_noise_floor, lm, load, run["context_len"])
+            print(f"[serve] {compute}: dense logits, one prefill against chunks of "
+                  f"{SERVE_CONFIG['prefill_chunk']}, differ by up to {floor} of the top logit",
+                  flush=True)
+            greedy = timed("gate 2", serve_greedy_against_dense, lm, load, run, dtype)
+            print(f"[serve] {compute} gate 2: greedy streams against dense generate over "
+                  f"{greedy['compared']} positions: {len(greedy['ties'])} ties "
+                  f"{json.dumps(greedy['ties'])}, share {greedy['tie_share']} (tie: a top-2 "
+                  f"margin under {SERVE_TIE[dtype]} of the top logit); greedy tokens following "
+                  f"markov_table({model['vocab']}): {greedy['chain_share']}", flush=True)
+            alone = timed("gate 3", serve_sampled_alone, lm, load, run, device)
+            print(f"[serve] {compute} gate 3: {alone} sampled streams equal to the same "
+                  "request alone through a fresh engine", flush=True)
+            if dtype == torch.float32:
+                diff = timed("gate 4", serve_card_against_cpu, lm, model)
+                print(f"[serve] float32 gate 4: apply_cached logits, 2 x 256 prefill then 8 "
+                      f"decode steps, card against CPU: max |diff| {diff} "
+                      f"(tolerance {json.dumps(SERVE_CARD_CPU_TOL)})", flush=True)
+            timed("gate 5", serve_beam, lm, load)
+            timed("gate 6", serve_artifact, lm, trained, model, load, device, tmp, dtype)
+            ev_mod.from_env().close()
+            del os.environ["TPU_DIST_TELEMETRY"]
+            n, errors = ev_mod.validate_dir(events_dir)
+            kinds = {rec["event"] for rec in ev_mod.read_events(events_dir)}
+            check(not errors, f"{len(errors)} event schema errors: {errors[:5]}")
+            check({"request_admit", "prefill", "decode_step", "request_finish"} <= kinds,
+                  f"event kinds {sorted(kinds)}")
+            print(f"[serve] {compute} gates 5-7: generate_beam(beams=1) is greedy generate, "
+                  f"beams=4 scores best first; save_params then LMServer.from_artifact serves "
+                  f"the same greedy tokens; {n} events validate ({sorted(kinds)})", flush=True)
+            static = timed("static", serve_static, lm, load)
+            profile = timed("profile", serve_profile, lm, load, device, card, compute)
+            print(f"[serve] {compute}: static generate at batch {SERVE_CONFIG['max_batch']}, "
+                  f"padded to each batch's longest: {static['tokens_per_s']} requested tokens/s "
+                  f"({static['padded_tokens_per_s']} with the padding), {static['wall']} s, "
+                  f"against the engine's {run['tokens_per_s']}; decode step (one CUDA graph "
+                  f"launch from the host): {profile.get('kernel_launches_per_step')} kernels, "
+                  f"device busy share "
+                  f"{profile.get('device_busy_share_of_wall')}, "
+                  f"{profile.get('device_ms_per_step')} device ms of "
+                  f"{profile.get('wall_ms_per_step')} ms; {time.perf_counter() - t1} s "
+                  f"({json.dumps(secs)}), on {card}", flush=True)
+            out[compute] = {**run, "greedy": greedy, "static": static, "profile": profile}
+            out[compute].pop("results")
+            del lm
+            torch.cuda.empty_cache()
+    serving = {**counts(fa, ops), "ring_all_reduce": ops.ring_all_reduce_pallas.launches}
+    check(not any(serving.values()), f"hand-written kernels launched while serving: {serving}")
+    out["launches"] = serving
+    print(f"[serve] gate 8: launches while serving {json.dumps(serving)} (TPU_DIST_FLASH=1, "
+          f"TPU_DIST_PALLAS_DENSE=1); phase {time.perf_counter() - t0} s on {card}", flush=True)
+    return out
+
+
 def build_all(_build) -> None:
     """One nvcc per source, all started together."""
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -1331,8 +1777,14 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print("[env] TF32 off for matmul and cuDNN (float32 computed in float32)", flush=True)
 
-    if sys.argv[1:] not in ([], ["--lm-f32"], ["--nccl"], ["--resume"], ["--main"], ["--image"]):
-        sys.exit("usage: python3 chip_smoke.py [--lm-f32 | --nccl | --resume | --main | --image]")
+    if sys.argv[1:] not in ([], ["--lm-f32"], ["--nccl"], ["--resume"], ["--main"], ["--image"],
+                            ["--serve"]):
+        sys.exit("usage: python3 chip_smoke.py [--lm-f32 | --nccl | --resume | --main | --image "
+                 "| --serve]")
+    if sys.argv[1:] == ["--serve"]:
+        build_all(_build)
+        serve_path(device, fa, ops, card_and_power_limit())
+        return
     if sys.argv[1:] == ["--image"]:
         build_all(_build)
         image_head_rows(device, ops, F)
@@ -1373,6 +1825,7 @@ def main() -> None:
     dp = dp_path(checks, card_and_power_limit())
     resume = resume_path(device, fa, ops, card_and_power_limit())
     image = image_path(device, fa, ops, checks, card_and_power_limit())
+    served = serve_path(device, fa, ops, card_and_power_limit())
 
     step = rows[:2]  # the two launches of one training step
     kernel = {
@@ -1391,6 +1844,7 @@ def main() -> None:
         "launches_resume": {"train_dist, three runs": resume["mnist"]["runs_launches"],
                             "one step at accum_steps 2": resume["mnist"]["accum_launches"][2]},
         "launches_image": image_launches(image, "fused_dense"),
+        "launches_serve": served["launches"]["fused_dense"],
         "image_heads": [{key: r[key] for key in ("m", "k", "n", "dtype", "max_abs_err", "ms",
                                                  "plain_ms", "bound_ms", "bound_by",
                                                  "library_ms")}
@@ -1430,6 +1884,7 @@ def main() -> None:
         else:
             entry["launches_resume"] = {"train_lm": resume["demo"]["launches"][name]}
         entry["launches_image"] = image_launches(image, name)
+        entry["launches_serve"] = served["launches"][name]
         vit_row = next(r for r in flash_rows
                        if r["kernel"] == name and r["case"] == ("vit" if on_lm else "vit_f32"))
         entry["vit"] = {key: vit_row[key] for key in ("q", "dtype", "causal", "max_abs_err", "ms",
@@ -1448,6 +1903,7 @@ def main() -> None:
         "launches_ring_phase": ring["launches"],
         **{key: timing[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
+        "launches_serve": served["launches"]["ring_all_reduce"],
         "schedule": RING_SCHEDULE,
         "work": f"one call of {timing['bytes_per_rank']} bytes of float32 per rank at world "
                 f"{timing['world']}, every rank a process on this one card; max_abs_err: that "

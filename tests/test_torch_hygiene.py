@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from tpu_dist_torch import models
+from tpu_dist_torch import models, serve
 from tpu_dist_torch.device import resolve_device
 from tpu_dist_torch.ops import _build, fused_dense, matmul, pallas_ring
 from tpu_dist_torch.train import LMTrainer, Trainer
@@ -37,6 +37,8 @@ def test_importing_the_port_loads_neither_jax_nor_tpu_dist():
         "import tpu_dist_torch.data.text, tpu_dist_torch.data.digits\n"
         "import tpu_dist_torch.demos.train_image, tpu_dist_torch.data.cifar\n"
         "import tpu_dist_torch.models.resnet, tpu_dist_torch.models.vit\n"
+        "import tpu_dist_torch.serve, tpu_dist_torch.observe, tpu_dist_torch.export\n"
+        "import tpu_dist_torch.demos.generate, tpu_dist_torch.demos.serve_demo\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpu_dist'))\n"
         "assert not bad, bad\n"
     )
@@ -58,6 +60,10 @@ def test_cuda_without_a_card_raises(monkeypatch):
         Trainer(models.mnist_net(), device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LMTrainer(models.TransformerLM(vocab=8, dim=8, depth=1, heads=2), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.ServeEngine(models.TransformerLM(vocab=8, dim=8, depth=1, heads=2, max_seq=256))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.LMServer(models.TransformerLM(vocab=8, dim=8, depth=1, heads=2, max_seq=256))
 
 
 def test_cpu_matmul_never_touches_the_build(monkeypatch):

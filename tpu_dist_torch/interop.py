@@ -14,7 +14,8 @@ mapping carries any tree shaped like the parameters, such as optimizer
 moments and momentum buffers, and the model state: a JAX model's
 ``state`` tree (batch-norm ``mean``/``var``) is the port module's
 buffers (`load_jax`, `module_to_jax`); the trainers' checkpoints are
-`jax_views` of their live tensors.
+`jax_views` of their live tensors.  KV caches, dense or paged, keep their
+layout (`cache_from_jax`, `cache_to_jax`).
 """
 
 from __future__ import annotations
@@ -115,3 +116,18 @@ def module_to_jax(module: torch.nn.Module) -> tuple:
     n = num_layers(module)
     return (params_to_jax(dict(module.named_parameters()), n),
             params_to_jax(dict(module.named_buffers()), n))
+
+
+def cache_from_jax(cache, device=None) -> list[dict[str, torch.Tensor]]:
+    """A JAX KV cache, dense (``TransformerLM.init_cache``: per block
+    ``{"k", "v"}`` of ``(batch, kv_heads, len, head_dim)``) or paged
+    (``serve.init_paged_cache``: per block ``(blocks + 1, kv_heads,
+    block_size, head_dim)``), as the port's: the same layout, tensors with
+    their own memory."""
+    return [{name: torch.tensor(np.asarray(a), device=device) for name, a in c.items()}
+            for c in cache]
+
+
+def cache_to_jax(cache) -> list[dict[str, np.ndarray]]:
+    """The port's dense or paged KV cache as the JAX package's, numpy leaves."""
+    return [{name: t.detach().cpu().numpy() for name, t in c.items()} for c in cache]

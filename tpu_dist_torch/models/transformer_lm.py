@@ -8,8 +8,14 @@ Token embedding, learned or rotary positions, pre-norm causal blocks
 
 Also here: the next-token loss `lm_loss`, the seeded Markov-chain corpus
 `synthetic_tokens` (the same numpy stream as the JAX package, bit for bit)
-and `lm_perplexity`.  Cached decoding (``generate``) and the tensor-,
-sequence-, pipeline- and MoE-parallel forwards are not ported yet.
+and `lm_perplexity`.
+
+Inference: `init_cache` and `apply_cached` (the new tokens' keys and values
+written in place into a static-shape cache), `generate` (one multi-token
+prefill, then a Python loop of single-token steps; greedy, or a draw
+``argmax(masked logits + Gumbel noise)`` whose noise comes from an explicit
+``torch.Generator``) and `generate_beam`.  The tensor-, sequence-, pipeline-
+and MoE-parallel forms are not ported yet (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -76,10 +82,17 @@ class TransformerLM(torch.nn.Module):
                 torch.randn(1, max_seq, dim, generator=generator) * 0.02
             )
 
-    def _trunk(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _trunk(self, tokens: torch.Tensor, pos_offset=0) -> torch.Tensor:
         h = self.embed(tokens)
         if self.pos_embedding == "learned":
-            h = h + self.pos[:, : tokens.shape[1]]
+            # lax.dynamic_slice's clamp: the window always lies inside the table
+            s = tokens.shape[1]
+            if isinstance(pos_offset, int):
+                start = max(0, min(pos_offset, self.max_seq - s))
+                h = h + self.pos[:, start : start + s]
+            else:  # a 0-d tensor: no host value in a decode step
+                start = pos_offset.clamp(0, self.max_seq - s)
+                h = h + self.pos[0, start + torch.arange(s, device=h.device)]
         # rope: positions enter inside attention (q/k rotation), not here
         return h
 
@@ -98,6 +111,166 @@ class TransformerLM(torch.nn.Module):
                 h = blk(h, attn_mask)
         h = self.ln(h)
         return h @ self.embed.table.T
+
+    # ---- autoregressive inference (KV cache) ----------------------------
+
+    def init_cache(self, batch: int, cache_len: int | None = None, dtype=None,
+                   device=None) -> list[dict[str, torch.Tensor]]:
+        """Static-shape KV cache: one ``{"k", "v"}`` pair per block, each
+        ``(batch, kv_heads, cache_len, head_dim)`` zeros, in the embedding
+        table's dtype and on its device unless given."""
+        table = self.embed.table
+        shape = (batch, self.kv_heads, cache_len or self.max_seq, self.dim // self.heads)
+        kw = dict(dtype=dtype or table.dtype, device=device or table.device)
+        return [{"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+                for _ in self.blocks]
+
+    def apply_cached(self, tokens: torch.Tensor, cache: list, index):
+        """Forward ``tokens`` ``(b, s)``, new tokens at global positions
+        ``index .. index + s - 1`` (an int or a 0-d integer tensor), against
+        and into ``cache`` (written in place).  Returns ``(logits (b, s,
+        vocab), cache)``."""
+        h = self._trunk(tokens, pos_offset=index)
+        for blk, c in zip(self.blocks, cache):
+            o, c["k"], c["v"] = blk.attn.apply_cached(blk.ln1(h), c["k"], c["v"], index)
+            h = h + o
+            h = h + blk.mlp(blk.ln2(h))
+        return self.ln(h) @ self.embed.table.T, cache
+
+    def _check_room(self, s_p: int, steps: int, cache_len: int | None) -> int:
+        L = cache_len or self.max_seq
+        if s_p + steps > L:
+            raise ValueError(f"prompt {s_p} + steps {steps} exceeds cache length {L}")
+        return L
+
+    @torch.no_grad()
+    def generate(
+        self,
+        prompt,
+        steps: int,
+        *,
+        generator: torch.Generator | None = None,
+        seed: int | None = None,
+        temperature: float = 0.0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        cache_len: int | None = None,
+        stop_token: int | None = None,
+        sampler=None,
+    ) -> torch.Tensor:
+        """Sample ``steps`` tokens after ``prompt`` ``(b, s_prompt)``: one
+        multi-token prefill, then one single-token step at a time against
+        the static cache, every step the same tensors, so that on the card
+        the step runs as one CUDA graph (`device.Replay`), as the JAX
+        package's decode is one compiled program.  Returns ``(b, steps)``
+        tokens in the prompt's integer dtype, on the model's device.
+
+        ``temperature=0`` is greedy argmax.  Otherwise each step draws
+        Gumbel noise ``(b, vocab)`` in the logits' dtype from ``generator``
+        (or a generator on the model's device seeded with ``seed``, 0 by
+        default), shared by every stream of the batch, and takes
+        ``argmax(masked logits / temperature + noise)``, ``top_k`` and
+        ``top_p`` masking the tail as `serve.sampling.sample_logits` does.
+        ``stop_token``: a stream that emits it keeps emitting it.
+        ``sampler``: ``(logits, noise) -> tokens`` in place of the sampling
+        arguments (on the card it runs inside the graph: it must not
+        synchronise); noise is then drawn every step."""
+        from tpu_dist_torch.device import Replay
+        from tpu_dist_torch.serve import sampling
+
+        device = self.embed.table.device
+        prompt = torch.as_tensor(prompt, device=device)
+        b, s_p = prompt.shape
+        L = self._check_room(s_p, steps, cache_len)
+        sample = sampler or _make_sampler(temperature, top_k, top_p)
+        noisy = sampler is not None or temperature != 0.0
+        if noisy and generator is None:
+            generator = torch.Generator(device).manual_seed(0 if seed is None else seed)
+        cache = self.init_cache(b, L)
+        logits, cache = self.apply_cached(prompt, cache, 0)
+        # the step's state: every step reads and writes these same tensors
+        last = logits[:, -1].clone()
+        noise = torch.zeros_like(last) if noisy else None
+        out = torch.empty((b, steps), dtype=prompt.dtype, device=device)
+        done = torch.zeros(b, dtype=torch.bool, device=device)
+        index = torch.tensor(s_p, device=device)  # the position the step feeds
+
+        def step():
+            tok = sample(last, noise).to(prompt.dtype)
+            if stop_token is not None:
+                tok = torch.where(done, stop_token, tok)
+                done.logical_or_(tok == stop_token)
+            out.index_copy_(1, (index - s_p).reshape(1), tok[:, None])
+            # the last step's forward is wasted, as the JAX package's scan's
+            logits, _ = self.apply_cached(tok[:, None], cache, index)
+            last.copy_(logits[:, 0])
+            index.add_(1)
+
+        run = Replay(step, device)
+        for _ in range(steps):
+            if noisy:
+                noise.copy_(sampling.gumbel(last.shape, last.dtype, generator))
+            run()
+        return out
+
+    @torch.no_grad()
+    def generate_beam(self, prompt, steps: int, *, beams: int = 4,
+                      cache_len: int | None = None, return_all: bool = False):
+        """Beam search: keep the ``beams`` continuations of highest total
+        log-probability at every step (ties to the lower index, as
+        ``lax.top_k``).  One prefill, the cache repeated ``beams``-fold, then
+        each step re-gathers the cache and the token history under the
+        surviving beams.  Returns the best beam's tokens ``(b, steps)``, or
+        with ``return_all`` ``(tokens (b, beams, steps), scores (b, beams))``
+        best first.  ``beams=1`` is greedy `generate`."""
+        if beams < 1:
+            raise ValueError(f"beams must be >= 1, got {beams}")
+        device = self.embed.table.device
+        prompt = torch.as_tensor(prompt, device=device)
+        b, s_p = prompt.shape
+        L = self._check_room(s_p, steps, cache_len)
+        k = beams
+        logits, cache = self.apply_cached(prompt, self.init_cache(b, L), 0)
+        cache = [{n: t.repeat_interleave(k, 0) for n, t in c.items()} for c in cache]
+        last = logits[:, -1].repeat_interleave(k, 0)  # (b*k, V): rows b0 x k, b1 x k, ...
+        V = last.shape[-1]
+        # beam 0 live, the others at -1e30: step 0 picks k distinct tokens
+        scores = torch.full((b, k), -1e30, device=device)
+        scores[:, 0] = 0.0
+        toks = torch.zeros((b, k, steps), dtype=prompt.dtype, device=device)
+        base = torch.arange(b, device=device)[:, None] * k
+        for t in range(steps):
+            logp = torch.log_softmax(last.float(), dim=-1).reshape(b, k, V)
+            total = (scores[:, :, None] + logp).reshape(b, k * V)
+            order = torch.sort(total, dim=-1, descending=True, stable=True)
+            scores, top_idx = order.values[:, :k], order.indices[:, :k]
+            beam_idx = top_idx // V  # (b, k) surviving parent beams
+            tok = (top_idx % V).to(prompt.dtype)
+            toks = torch.take_along_dim(toks, beam_idx[:, :, None], dim=1)
+            toks[:, :, t] = tok
+            if t + 1 < steps:
+                flat = (base + beam_idx).reshape(-1)
+                cache = [{n: x[flat] for n, x in c.items()} for c in cache]
+                logits, cache = self.apply_cached(tok.reshape(b * k, 1), cache, s_p + t)
+                last = logits[:, 0]
+        order = torch.argsort(-scores, dim=1, stable=True)
+        toks = torch.take_along_dim(toks, order[:, :, None], dim=1)
+        scores = torch.take_along_dim(scores, order, dim=1)
+        return (toks, scores) if return_all else toks[:, 0]
+
+
+def _make_sampler(temperature: float, top_k: int | None, top_p: float | None):
+    """`generate`'s draw for fixed sampling arguments: ``(logits, noise) ->
+    tokens``, greedy at ``temperature=0``."""
+    from tpu_dist_torch.serve import sampling
+
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    k = 0 if top_k is None else top_k
+    p = 1.0 if top_p is None else top_p
+    return lambda logits, noise: sampling.sample_logits(logits, noise, temperature, k, p)
 
 
 def lm_loss(

@@ -163,6 +163,41 @@ class MultiHeadAttention(nn.Module):
         )
         return self.out(o.transpose(1, 2).reshape(b, s, self.dim))
 
+    def apply_cached(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     index) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Incremental (KV-cache) forward for autoregressive decode.
+
+        ``x`` holds ``s`` new tokens at global positions ``index ..
+        index + s - 1`` (``index`` an int or a 0-d integer tensor, which
+        keeps a decode step free of host values); their keys and values are
+        written in place into the caches ``(b, kv_heads, cache_len,
+        head_dim)`` (GQA caches only the kv heads), and the queries attend
+        over the whole cache under the position mask ``pos <= index + q``
+        (and the sliding-window band).  Returns ``(y, k_cache, v_cache)``,
+        the caches being the tensors given.  Causal self-attention only."""
+        if not self.causal:
+            raise ValueError("apply_cached requires causal=True attention")
+        b, s, _ = x.shape
+        q, k, v = self._project(x)
+        qpos = index + torch.arange(s, device=x.device)
+        if self.use_rope:
+            # keys enter the cache rotated by their own absolute position
+            q, k = rope(q, qpos), rope(k, qpos)
+        k_cache.index_copy_(2, qpos, k.to(k_cache.dtype))
+        v_cache.index_copy_(2, qpos, v.to(v_cache.dtype))
+        cache_len = k_cache.shape[2]
+        scale = self.head_dim**-0.5
+        logits = torch.einsum(
+            "bhqd,bhkd->bhqk", q * scale, self._expand_kv(k_cache).to(q.dtype)
+        )
+        pos = torch.arange(cache_len, device=x.device)[None, :]
+        visible = pos <= qpos[:, None]
+        if self.sliding_window is not None:
+            visible = visible & (pos > qpos[:, None] - self.sliding_window)
+        weights = torch.softmax(torch.where(visible, logits, NEG_INF), dim=-1)
+        o = torch.einsum("bhqk,bhkd->bhqd", weights, self._expand_kv(v_cache).to(q.dtype))
+        return self.out(o.transpose(1, 2).reshape(b, s, self.dim)), k_cache, v_cache
+
 
 def sliding_window_mask(seq: int, window: int, device=None) -> torch.Tensor:
     """Boolean (seq, seq) mask, True where |i - j| < window."""
