@@ -138,10 +138,29 @@ the exit code is nonzero:
           TTFT and TPOT p50/p99, static ``generate`` at batch 16 beside it,
           weights and pool bytes, peak memory, a decode step's launches and
           busy share (``torch.profiler``), the phase's seconds.
+[moe]     mixture of experts at the GPT-2-small class's width.
+          ``LMTrainer.fit`` of the dense MoE TransformerLM (4 experts a
+          block, every expert on every token; 280,081,920 parameters,
+          asserted) in bfloat16 with TPU_DIST_FLASH=1, 2 epochs of 4 steps
+          of 16 x 1024 tokens: 12 launches a step of each tensor-core flash
+          kernel, none of the others, losses finite and falling, tokens/s,
+          model FLOP/s (the dense LM's and 3 more MLPs a block), peak
+          memory, a profile of 3 steps with the expert einsums' share
+          (``aten::bmm``).  Then ``LMTrainer(moe=True)`` at world 2 under
+          ``comm.spmd``, both ranks on this card (the [dp] layout), depth
+          2 with 2 experts: float32 without TF32, 3 sgd steps, against the
+          dense MoE at world 1 from the same parameters (losses and
+          parameters within rtol 2e-3, atol 2e-4; no token dropped; the same
+          bits on both ranks; 4 all_to_all calls a block a step: 2 forward,
+          2 backward); then bfloat16, each tensor-core flash kernel once a
+          block a step on each rank.  Then one float32 step of a small MoE
+          LM (vocab 512, dim 128, depth 2, 4 experts) on the card and on the
+          CPU, and its ``apply_cached`` prefill against its forward on the
+          card; the phase's seconds.
 
-Then one JSON line per kernel (with its launches in each [image] run and
-its ``vit`` row of [flash]), the card's name and power limit, and the
-result line.  Without a CUDA device it exits nonzero before printing any
+Then one JSON line per kernel (with its launches in each [image] run, on
+[moe] and its ``vit`` row of [flash]), the card's name and power limit,
+and the result line.  Without a CUDA device it exits nonzero before printing any
 result.
 
     python3 chip_smoke.py --lm-f32
@@ -152,12 +171,17 @@ result line.
 
     python3 chip_smoke.py --nccl
 
-needs four cards: it runs only [env], the build, [collectives], [dp] and
-[image-dp], where each rank now has a card of its own, so the collectives
-take NCCL on the card and [dp]'s ring kernel crosses NVLink; [image-dp]
-(`ops.checks.check_image_dp`) trains ResNet-18 at world 4 under "psum" for
-10 steps of 128 and requires every parameter and batch-norm buffer to hold
-the same bits on every rank; no result line.
+needs four cards: it runs only [env], the build, [collectives], [dp],
+[image-dp] and [moe-ep], where each rank now has a card of its own, so the
+collectives take NCCL on the card and [dp]'s ring kernel crosses NVLink;
+[image-dp] (`ops.checks.check_image_dp`) trains ResNet-18 at world 4 under
+"psum" for 10 steps of 128 and requires every parameter and batch-norm
+buffer to hold the same bits on every rank; [moe-ep]
+(`ops.checks.check_moe_ep`) trains the MoE LM expert-parallel at world 4
+(full width and depth, 4 experts, one a rank; bfloat16, flash; 2 x 4 steps
+of 16 x 1024 tokens): losses falling, every parameter the same bits on
+every rank, tokens/s and a traced step's all_to_all share; no result
+line.
 
     python3 chip_smoke.py --resume
 
@@ -172,6 +196,10 @@ compare it between two trees
     python3 chip_smoke.py --serve
 
 runs only [env], the build and [serve]; no result line.
+
+    python3 chip_smoke.py --moe
+
+runs only [env], the build and [moe]; no result line.
 
     python3 chip_smoke.py --main
 
@@ -628,13 +656,15 @@ def backward_pair(rows, label, route, library_step_ms, work, dtype) -> dict:
     }
 
 
-def profile_steps(step, steps: int, card_name: str, compute: str, phase: str = "[lm]") -> dict:
+def profile_steps(step, steps: int, card_name: str, compute: str, phase: str = "[lm]",
+                  ops: tuple = ()) -> dict:
     """Device time by kernel over a few training steps, from
     ``torch.profiler``, summed by kind of kernel (by name); the flash
     kernels' share of it and each flash kernel's time, and the share of the
     profiled steps' wall time
     the card was busy (the profiler slows the host, so this share is a
-    floor)."""
+    floor).  ``ops``: names of operators (``aten::bmm``) whose kernels'
+    device time a step, and share of the device time, are reported too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -664,6 +694,15 @@ def profile_steps(step, steps: int, card_name: str, compute: str, phase: str = "
         if name:
             flash[name[0]] = flash.get(name[0], 0.0) + e.self_device_time_total / steps / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    by_op = {}
+    for e in prof.key_averages():
+        if e.key in ops and e.device_type != DeviceType.CUDA:
+            total = getattr(e, "device_time_total", None)
+            if total is None:  # the name before torch 2.4
+                total = e.cuda_time_total
+            by_op[e.key] = {"ms_per_step": total / steps / 1e3,
+                            "share_of_device_time": total / device_us,
+                            "calls_per_step": e.count / steps}
     out = {
         "compute": compute, "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
         "device_ms_per_step": device_us / steps / 1e3,
@@ -672,6 +711,7 @@ def profile_steps(step, steps: int, card_name: str, compute: str, phase: str = "
         "flash_share_of_device_time": by_kind["flash"] * steps * 1e3 / device_us,
         "flash_ms_per_step_by_kernel": flash,
         "device_busy_share_of_wall": device_us / wall_us,
+        **({"ops": by_op} if ops else {}),
         "card": card_name,
         "top_kernels": [{"name": e.key[:120], "ms_per_step": e.self_device_time_total
                          / steps / 1e3, "calls_per_step": e.count / steps} for e in top],
@@ -699,6 +739,7 @@ def lm_fit(device, fa, flops, card_name, *, compute_dtype, steps_per_epoch: int,
     before it and read after it: 12 a step of each kernel of ``route``,
     none of the others.  Then a profile of 3 steps."""
     from tpu_dist_torch import models
+    from tpu_dist_torch.device import to_device
     from tpu_dist_torch.train import LMTrainConfig, LMTrainer
 
     depth, epochs, batch, seq = 12, 2, 16, 1024
@@ -738,7 +779,7 @@ def lm_fit(device, fa, flops, card_name, *, compute_dtype, steps_per_epoch: int,
           f"launches {launches} (expected {expected}: {depth} x {steps} steps)", flush=True)
     check(launches == expected, f"flash launches {launches}, not {expected}")
     check(all(math.isfinite(s.mean_loss) for s in history), "non-finite epoch loss")
-    tokens = trainer._to_device(windows[:batch].numpy())
+    tokens = to_device(windows[:batch].numpy(), trainer.device)
     profile = profile_steps(lambda: trainer.train_step(tokens), 3, card_name, compute)
     del trainer, lm
     torch.cuda.empty_cache()
@@ -944,6 +985,7 @@ def lm_resume(device, fa, ops, card: str) -> dict:
     import tempfile
 
     from tpu_dist_torch import models
+    from tpu_dist_torch.device import to_device
     from tpu_dist_torch.train import LMTrainConfig, LMTrainer, checkpoint, global_norm
 
     batch, seq, steps = 16, 1024, 4
@@ -956,7 +998,7 @@ def lm_resume(device, fa, ops, card: str) -> dict:
                                            **cfg), device=device)
 
     first = trainer(0)
-    tokens = first._to_device(windows[:batch].numpy())
+    tokens = to_device(windows[:batch].numpy(), first.device)
     step = {}
     for accum in (4, 1):
         first.config.accum_steps = accum
@@ -1027,6 +1069,7 @@ def lm_guarded_f16(device, fa, ops, card: str) -> dict:
     """The same LM in float16 under ``nan_guard`` with ``loss_scale=2**15``:
     2 epochs of 4 steps, then one guarded update given a NaN gradient."""
     from tpu_dist_torch import models
+    from tpu_dist_torch.device import to_device
     from tpu_dist_torch.resilience import guards
     from tpu_dist_torch.train import LMTrainConfig, LMTrainer
 
@@ -1055,7 +1098,7 @@ def lm_guarded_f16(device, fa, ops, card: str) -> dict:
     check(all(math.isfinite(h.mean_loss) for h in history), "non-finite float16 epoch loss")
     check(history[1].mean_loss < history[0].mean_loss, "float16 epoch 1 not below epoch 0")
 
-    trainer.loss_and_grads(trainer._to_device(windows[:batch].numpy()))
+    trainer.loss_and_grads(to_device(windows[:batch].numpy(), trainer.device))
     grads = {k: p.grad for k, p in trainer.params.items()}
     next(iter(grads.values())).view(-1)[7] = float("nan")
     params = {k: p.detach().clone() for k, p in trainer.params.items()}
@@ -1740,6 +1783,194 @@ def serve_path(device, fa, ops, card: str, model: dict = GPT2_SMALL,
     return out
 
 
+MOE_LM = dict(GPT2_SMALL, moe_experts=4, moe_capacity_factor=2.0, moe_balance_weight=0.01)
+MOE_PARAMS = 280_081_920  # 12 blocks of 4 experts at dim 768, vocab 32768
+MOE_FIT = (16, 4)  # global batch, steps an epoch (two epochs)
+# Expert-parallel on one card: depth 2, two experts, no balance term; every
+# token goes to both experts, so a capacity factor of 2 drops none.
+MOE_EP = dict(depth=2, moe_experts=2, moe_capacity_factor=2.0, moe_balance_weight=0.0)
+MOE_EP_RUN = (4, 3, 0.1)  # global batch, steps (one an epoch), sgd learning rate
+# [moe-ep] (--nccl): full depth, four experts, one rank a card
+MOE_EP_4 = dict(depth=12, moe_experts=4, moe_capacity_factor=2.0, moe_balance_weight=0.01)
+
+
+def moe_step_flops(flops, batch, seq, dim, depth, heads, vocab, experts) -> float:
+    """Model FLOPs of one training step of the dense MoE LM: the dense LM's
+    (`lm_step_flops`) and ``experts - 1`` more MLPs a block, since every
+    expert computes every token (the router's d x E product left out)."""
+    mlp = 2 * flops.linear_flops(batch * seq, dim, 4 * dim)
+    return (lm_step_flops(flops, batch, seq, dim, depth, heads, vocab)
+            + flops.train_step_flops_estimate(depth * (experts - 1) * mlp))
+
+
+def moe_dense_fit(device, fa, ops, flops, card: str) -> dict:
+    """``LMTrainer.fit`` of the dense MoE LM (`MOE_LM`, every expert on
+    every token) at full width and depth, bfloat16, TPU_DIST_FLASH=1, two
+    epochs of 4 steps of 16 x 1024 tokens: 12 launches a step of each
+    tensor-core flash kernel and none of the others, losses finite and
+    falling; tokens/s, model FLOP/s, peak memory, and a profile of 3 steps
+    with the expert einsums' (``aten::bmm``) share."""
+    from tpu_dist_torch import models
+    from tpu_dist_torch.device import to_device
+    from tpu_dist_torch.train import LMTrainConfig, LMTrainer
+
+    batch, steps_per_epoch = MOE_FIT
+    depth, seq, vocab, epochs = MOE_LM["depth"], MOE_LM["max_seq"], MOE_LM["vocab"], 2
+    lm = models.TransformerLM(**MOE_LM, generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(n_params == MOE_PARAMS, f"{n_params} parameters, not {MOE_PARAMS}")
+    trainer = LMTrainer(lm, LMTrainConfig(global_batch=batch, compute_dtype="bfloat16",
+                                          log=lambda line: print("[moe]", line, flush=True)),
+                        device=device)
+    windows = models.synthetic_tokens(batch * steps_per_epoch, seq, vocab)
+    print(f"[moe] LMTrainer.fit: TransformerLM {json.dumps(MOE_LM)}, {n_params} params, the "
+          f"dense MoE (moe=False: every expert on every token); global batch {batch}, bfloat16, "
+          f"TPU_DIST_FLASH=1; {epochs} epochs of {steps_per_epoch} steps", flush=True)
+    zero_counts(fa, ops)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    history = trainer.fit(windows, epochs=epochs)
+    wall = time.perf_counter() - t0
+    launches = counts(fa, ops)
+    steps = epochs * steps_per_epoch
+    expected = {name: depth * steps if name in LM_ROUTE else 0 for name in launches}
+    step_flops = moe_step_flops(flops, batch, seq, MOE_LM["dim"], depth, MOE_LM["heads"], vocab,
+                                MOE_LM["moe_experts"])
+    peak = flops.peak_flops(PEAK_CARD, torch.bfloat16)
+    for stats in history:
+        rate = step_flops * steps_per_epoch / stats.seconds
+        print(f"[moe] dense MoE epoch {stats.epoch}: mean loss {stats.mean_loss}, "
+              f"{stats.tokens_per_sec} tokens/s, {stats.seconds} s, {rate / 1e12} model TFLOP/s "
+              f"({step_flops / 1e12} TFLOP a step), {rate / peak} of the bf16 peak, on {card}",
+              flush=True)
+    print(f"[moe] dense MoE fit wall time {wall} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated(device) / 1e9} GB; launches {json.dumps(launches)} "
+          f"(expected {json.dumps(expected)})", flush=True)
+    check(launches == expected, f"[moe] launches {launches}, not {expected}")
+    check(all(math.isfinite(s.mean_loss) for s in history), "[moe] non-finite epoch loss")
+    check(history[1].mean_loss < history[0].mean_loss,
+          f"[moe] epoch 1 mean loss {history[1].mean_loss} not below epoch 0's "
+          f"{history[0].mean_loss}")
+    tokens = to_device(windows[:batch].numpy(), device)
+    profile = profile_steps(lambda: trainer.train_step(tokens), 3, card, "bfloat16",
+                            phase="[moe]", ops=("aten::bmm",))
+    del trainer, lm
+    torch.cuda.empty_cache()
+    return {"launches": launches, "history": history, "profile": profile}
+
+
+def moe_ep_one_card(device, checks, card: str) -> dict:
+    """`ops.checks.check_moe_ep` at world 2, both ranks on this card (Gloo,
+    the [dp] layout), at full width and depth 2 with two experts: float32
+    without TF32, 3 sgd steps, against the dense MoE at world 1 from the
+    same parameters (losses and parameters within the JAX package's
+    rtol 2e-3, atol 2e-4; no token dropped; the same bits on both ranks;
+    2 all_to_all calls a block forward and 2 backward); then bfloat16, the
+    tensor-core flash kernels once a block a step on each rank."""
+    import tempfile
+
+    from tpu_dist_torch import models
+    from tpu_dist_torch.train import LMTrainConfig, LMTrainer, sgd, sgd_rule
+
+    batch, steps, lr = MOE_EP_RUN
+    lm_kw = dict(checks.MOE_WIDTH, **MOE_EP)
+    cfg = dict(epochs=steps, global_batch=batch)
+    windows = models.synthetic_tokens(batch, lm_kw["max_seq"], lm_kw["vocab"], seed=7).numpy()
+    depth = lm_kw["depth"]
+    lm = models.TransformerLM(**lm_kw, generator=torch.Generator().manual_seed(0)).to(device)
+    dense = LMTrainer(lm, LMTrainConfig(**cfg, log=lambda line: None),
+                      optimizer=sgd_rule(sgd(lm.parameters(), lr)), device=device)
+    t0 = time.perf_counter()
+    dense_losses = [s.mean_loss for s in dense.fit(windows)]
+    print(f"[moe] dense MoE at world 1, {json.dumps(lm_kw)}, float32 (no TF32), sgd({lr}), "
+          f"{steps} steps of {batch} x {lm_kw['max_seq']} tokens: losses {dense_losses} in "
+          f"{time.perf_counter() - t0} s", flush=True)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        reference = os.path.join(tmp, "dense.pt")
+        torch.save({k: p.detach().cpu() for k, p in lm.named_parameters()}, reference)
+        del dense, lm
+        torch.cuda.empty_cache()
+        for compute, route in (("float32", LM_F32_ROUTE), ("bfloat16", LM_ROUTE)):
+            t0 = time.perf_counter()
+            run = checks.check_moe_ep(
+                2, lm_kw, dict(cfg, compute_dtype=None if compute == "float32" else compute),
+                windows, lr=lr, reference=reference if compute == "float32" else None)
+            seconds = time.perf_counter() - t0
+            expected = {name: [depth * steps if name in route else 0] * 2
+                        for name in run["launches"]}
+            print(f"[moe] LMTrainer(moe=True), world 2, {layout(2)}, {compute}: losses "
+                  f"{run['losses']}, dropped {run['dropped']}, all_to_all calls per rank "
+                  f"{json.dumps(run['all_to_all_calls'])} ({2 * depth} a step each way "
+                  "expected), launches per rank "
+                  f"{json.dumps(run['launches'])}, tokens/s {run['tokens_per_sec']}, parameters "
+                  f"the same bits on both ranks ({run['parameters']} tensors)"
+                  + (f", max |param - dense| per rank {run['max_param_diff']}"
+                     if compute == "float32" else "") + f"; {seconds} s on {card}", flush=True)
+            check(run["launches"] == expected, f"[moe] EP launches {run['launches']}, not "
+                  f"{expected}")
+            a2a = {way: [2 * depth * steps] * 2 for way in ("forward", "backward")}
+            check(run["all_to_all_calls"] == a2a,
+                  f"[moe] all_to_all calls {run['all_to_all_calls']}, not {a2a}")
+            check(run["dropped"] == [0.0, 0.0], f"[moe] dropped fractions {run['dropped']}")
+            if compute == "float32":
+                check(all(math.isclose(a, b, rel_tol=2e-3, abs_tol=2e-4)
+                          for a, b in zip(run["losses"], dense_losses)),
+                      f"[moe] EP losses {run['losses']}, dense {dense_losses}")
+            out[compute] = run
+    return out
+
+
+def moe_path(device, fa, ops, checks, flops, card: str) -> dict:
+    t0 = time.perf_counter()
+    os.environ["TPU_DIST_FLASH"] = "1"
+    dense = moe_dense_fit(device, fa, ops, flops, card)
+    ep = moe_ep_one_card(device, checks, card)
+    small = checks.check_moe_card_against_cpu()
+    print(f"[moe] one float32 step of a small MoE LM ({json.dumps(checks.MOE_SMALL)}, batch 2, "
+          f"TPU_DIST_FLASH=1): loss card {small['loss_card']} CPU {small['loss_cpu']}; gradients "
+          f"max |diff| {small['grad_max_abs_diff']}; apply_cached prefill against the forward "
+          f"on the card max |diff| {small['cached_max_abs_diff']}; launches on the card "
+          f"{json.dumps(small['launches'])}", flush=True)
+    print(f"[moe] phase {time.perf_counter() - t0} s on {card}", flush=True)
+    return {"launches": dense["launches"], "ep": ep, "small": small}
+
+
+def moe_ep_path(checks, card: str) -> None:
+    """[moe-ep] (--nccl): ``LMTrainer(moe=True)`` at world 4, one rank a
+    card over NCCL, full width and depth (`MOE_EP_4`), bfloat16, flash, 2 x 4
+    steps of 16 x 1024 tokens (AdamW): losses falling, every parameter the
+    same bits on every rank; tokens/s and a traced step's all_to_all
+    share."""
+    from tpu_dist_torch import models
+
+    t0 = time.perf_counter()
+    os.environ["TPU_DIST_FLASH"] = "1"
+    lm_kw = dict(checks.MOE_WIDTH, **MOE_EP_4)
+    batch, steps_per_epoch = MOE_FIT
+    windows = models.synthetic_tokens(batch * steps_per_epoch, lm_kw["max_seq"],
+                                      lm_kw["vocab"]).numpy()
+    run = checks.check_moe_ep(4, lm_kw, dict(epochs=2, global_batch=batch,
+                                             compute_dtype="bfloat16"), windows, trace=True)
+    steps, depth = 2 * steps_per_epoch, lm_kw["depth"]
+    expected = {name: [depth * steps if name in LM_ROUTE else 0] * 4 for name in run["launches"]}
+    print(f"[moe-ep] LMTrainer(moe=True), world 4, {layout(4)}, {json.dumps(lm_kw)}, bfloat16, "
+          f"TPU_DIST_FLASH=1, 2 epochs of {steps_per_epoch} steps of {batch} x "
+          f"{lm_kw['max_seq']}: losses {run['losses']}, tokens/s {run['tokens_per_sec']}, epoch "
+          f"seconds {run['seconds']}, dropped fraction (largest of any MoE layer's call) "
+          f"{run['dropped']}, mean {run['dropped_mean']}, all_to_all calls per rank "
+          f"{json.dumps(run['all_to_all_calls'])}, launches per rank "
+          f"{json.dumps(run['launches'])}; every "
+          f"parameter the same bits on every rank ({run['parameters']} tensors)", flush=True)
+    print(f"[moe-ep] traced step per rank (torch.profiler): {json.dumps(run['trace'])} on {card}; "
+          f"phase {time.perf_counter() - t0} s", flush=True)
+    check(run["launches"] == expected, f"[moe-ep] launches {run['launches']}, not {expected}")
+    a2a = {way: [2 * depth * steps] * 4 for way in ("forward", "backward")}
+    check(run["all_to_all_calls"] == a2a, f"[moe-ep] all_to_all calls "
+          f"{run['all_to_all_calls']}, not {a2a}")
+    check(run["losses"][1] < run["losses"][0], f"[moe-ep] losses {run['losses']} not falling")
+
+
 def build_all(_build) -> None:
     """One nvcc per source, all started together."""
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -1778,9 +2009,13 @@ def main() -> None:
     print("[env] TF32 off for matmul and cuDNN (float32 computed in float32)", flush=True)
 
     if sys.argv[1:] not in ([], ["--lm-f32"], ["--nccl"], ["--resume"], ["--main"], ["--image"],
-                            ["--serve"]):
+                            ["--serve"], ["--moe"]):
         sys.exit("usage: python3 chip_smoke.py [--lm-f32 | --nccl | --resume | --main | --image "
-                 "| --serve]")
+                 "| --serve | --moe]")
+    if sys.argv[1:] == ["--moe"]:
+        build_all(_build)
+        moe_path(device, fa, ops, checks, flops, card_and_power_limit())
+        return
     if sys.argv[1:] == ["--serve"]:
         build_all(_build)
         serve_path(device, fa, ops, card_and_power_limit())
@@ -1812,6 +2047,7 @@ def main() -> None:
         collectives_path(checks, card_and_power_limit())
         dp_path(checks, card_and_power_limit())
         image_dp_path(checks, card_and_power_limit())
+        moe_ep_path(checks, card_and_power_limit())
         return
 
     build_all(_build)
@@ -1826,6 +2062,7 @@ def main() -> None:
     resume = resume_path(device, fa, ops, card_and_power_limit())
     image = image_path(device, fa, ops, checks, card_and_power_limit())
     served = serve_path(device, fa, ops, card_and_power_limit())
+    moe = moe_path(device, fa, ops, checks, flops, card_and_power_limit())
 
     step = rows[:2]  # the two launches of one training step
     kernel = {
@@ -1845,6 +2082,7 @@ def main() -> None:
                             "one step at accum_steps 2": resume["mnist"]["accum_launches"][2]},
         "launches_image": image_launches(image, "fused_dense"),
         "launches_serve": served["launches"]["fused_dense"],
+        "launches_moe": moe["launches"]["fused_dense"],
         "image_heads": [{key: r[key] for key in ("m", "k", "n", "dtype", "max_abs_err", "ms",
                                                  "plain_ms", "bound_ms", "bound_by",
                                                  "library_ms")}
@@ -1885,6 +2123,10 @@ def main() -> None:
             entry["launches_resume"] = {"train_lm": resume["demo"]["launches"][name]}
         entry["launches_image"] = image_launches(image, name)
         entry["launches_serve"] = served["launches"][name]
+        entry["launches_moe"] = {"dense MoE fit, 8 steps": moe["launches"][name],
+                                 **{f"EP world 2, {compute}, 3 steps, per rank":
+                                    moe["ep"][compute]["launches"][name]
+                                    for compute in ("float32", "bfloat16")}}
         vit_row = next(r for r in flash_rows
                        if r["kernel"] == name and r["case"] == ("vit" if on_lm else "vit_f32"))
         entry["vit"] = {key: vit_row[key] for key in ("q", "dtype", "causal", "max_abs_err", "ms",
@@ -1904,6 +2146,9 @@ def main() -> None:
         **{key: timing[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
         "launches_serve": served["launches"]["ring_all_reduce"],
+        "launches_moe": {f"EP world 2, {compute}, per rank":
+                         moe["ep"][compute]["launches"]["ring_all_reduce_pallas"]
+                         for compute in ("float32", "bfloat16")},
         "schedule": RING_SCHEDULE,
         "work": f"one call of {timing['bytes_per_rank']} bytes of float32 per rank at world "
                 f"{timing['world']}, every rank a process on this one card; max_abs_err: that "

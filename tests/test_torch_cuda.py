@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain versions, on the card: fused dense
 (both routes), the flash-attention kernels (the tensor-core forward, dK/dV
 and dQ, the SIMT forward, dK/dV and dQ) and the ring all-reduce across
-processes.  The flash and ring checks are the port's own
-(`tpu_dist_torch.ops.checks`), which ``chip_smoke.py`` runs too.
+processes; and the MoE LM's step on the card against the CPU.  The flash,
+ring and MoE checks are the port's own (`tpu_dist_torch.ops.checks`), which
+``chip_smoke.py`` runs too.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one.  They import neither jax nor the JAX package, so they run on a
@@ -460,3 +461,13 @@ def test_collectives_on_the_card(card, world):
 
 def test_launch_restarts_on_the_card(card):
     checks.check_launch_restart()
+
+
+# ---------------------------------------------------------------- MoE
+
+
+def test_moe_lm_on_the_card_matches_the_cpu(card):
+    """A small MoE LM's float32 step (the dense MoE, flash attention on the
+    card) against the same step on the CPU, and its cached prefill against
+    its forward on the card (`ops.checks.check_moe_card_against_cpu`)."""
+    checks.check_moe_card_against_cpu()

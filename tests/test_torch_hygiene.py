@@ -39,6 +39,7 @@ def test_importing_the_port_loads_neither_jax_nor_tpu_dist():
         "import tpu_dist_torch.models.resnet, tpu_dist_torch.models.vit\n"
         "import tpu_dist_torch.serve, tpu_dist_torch.observe, tpu_dist_torch.export\n"
         "import tpu_dist_torch.demos.generate, tpu_dist_torch.demos.serve_demo\n"
+        "import tpu_dist_torch.parallel.moe, tpu_dist_torch.demos.train_lm_modes\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpu_dist'))\n"
         "assert not bad, bad\n"
     )
@@ -64,6 +65,38 @@ def test_cuda_without_a_card_raises(monkeypatch):
         serve.ServeEngine(models.TransformerLM(vocab=8, dim=8, depth=1, heads=2, max_seq=256))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.LMServer(models.TransformerLM(vocab=8, dim=8, depth=1, heads=2, max_seq=256))
+    moe = models.TransformerLM(vocab=8, dim=8, depth=1, heads=2, moe_experts=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LMTrainer(moe, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LMTrainer(moe)  # the card is the default
+    from tpu_dist_torch.demos import train_lm_modes
+
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        train_lm_modes.main(["--mode", "moe", "--world", "2"])
+
+
+def test_cpu_moe_never_touches_the_build(monkeypatch):
+    """The MoE LM on CPU tensors, dense, and the top-1 and expert-choice
+    layers at a world of one (one expert), with TPU_DIST_FLASH=1: no build,
+    no launch counted."""
+    from tpu_dist_torch import parallel
+
+    def refuse(name):
+        raise AssertionError(f"CPU MoE tried to build {name}")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setenv("TPU_DIST_FLASH", "1")
+    before = [k.launches for k in fa.KERNELS]
+    lm = models.TransformerLM(vocab=16, dim=16, depth=1, heads=2, max_seq=128, moe_experts=2)
+    tokens = models.synthetic_tokens(2, 128, 16)
+    models.lm_loss(lm(tokens), tokens).backward()
+    x, moe = torch.randn(8, 16), lm.blocks[0].moe
+    for fn in (parallel.moe_mlp, parallel.moe_mlp_expert_choice):
+        y, _ = fn(x, moe.gate[:, :1], moe.up[0], moe.down[0])
+        assert y.shape == x.shape
+    assert [k.launches for k in fa.KERNELS] == before
+    assert lm.blocks[0].moe.up.grad is not None
 
 
 def test_cpu_matmul_never_touches_the_build(monkeypatch):

@@ -135,8 +135,11 @@ def test_interop_round_trips_the_mnist_sequential():
 
 
 def test_moe_is_refused_until_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.TransformerLM(**SMALL, moe_experts=2)
+    """MoE is ported (tests/test_torch_moe.py): two experts or more build,
+    and a single expert is refused with the JAX package's ValueError."""
+    assert models.TransformerLM(**SMALL, moe_experts=2).blocks[0].moe.up.shape == (2, 32, 128)
+    with pytest.raises(ValueError, match="moe_experts must be 0"):
+        models.TransformerLM(**SMALL, moe_experts=1)
 
 
 def test_layer_norm_embedding_and_gelu_match_jax():

@@ -21,10 +21,13 @@ where torch leaves them open:
   every rank but ``dst`` with its input.
 
 ``all_reduce``, ``reduce`` and ``broadcast`` work in place, as torch's do,
-and return the tensor; the others return new tensors.  One rule for every
-call: a CUDA tensor in a Gloo group (ranks that share a card) goes through
-host memory; under NCCL it stays on the card; nothing on a CUDA tensor falls
-back to another path.  Without a process group a call runs a world of one.
+and return the tensor; the others return new tensors.  ``all_gather`` and
+``all_to_all`` carry gradients, as the JAX package's ``lax`` collectives
+do (expert parallelism trains through them); the other calls do not yet.
+One rule for every call: a CUDA tensor in a Gloo group (ranks that share a
+card) goes through host memory, the backward's collective too; under NCCL
+it stays on the card; nothing on a CUDA tensor falls back to another path.
+Without a process group a call runs a world of one.
 """
 
 from __future__ import annotations
@@ -185,20 +188,44 @@ def all_gather(x: torch.Tensor, *, axis: int = 0, tiled: bool = False,
     by default), or concatenated along ``axis`` when ``tiled``.  With
     ``group``, members receive the ``(len(group), ...)`` stack of the
     members' contributions (by rank) and the others zeros (``axis`` and
-    ``tiled`` must be the defaults)."""
+    ``tiled`` must be the defaults).
+
+    Differentiable, as ``lax.all_gather`` is: the gradient of a member's
+    ``x`` is the sum over the members of the gradients of their outputs,
+    each taken at this member's piece (JAX's transpose, a
+    ``psum_scatter``)."""
     members = _members(group, None, "all_gather")
     if group is not None and (axis != 0 or tiled):
         raise ValueError("group= supports the default axis=0, tiled=False")
     if group is not None and rank() not in members:
         return x.new_zeros((len(members),) + tuple(x.shape))
-    if len(members) > 1:
-        wire = _outgoing(x, _pg(group))
-        rows = [torch.empty_like(wire) for _ in members]  # by rank
-        dist.all_gather(rows, wire, group=_pg(group))
-        rows = [row.to(x.device) for row in rows]
-    else:
-        rows = [x.detach()]
-    return torch.cat(rows, dim=axis) if tiled else torch.stack(rows, dim=axis)
+    return _AllGather.apply(x, axis, tiled, group)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, tiled, group):
+        ctx.axis, ctx.tiled, ctx.group, ctx.piece = axis, tiled, group, x.shape[axis]
+        members = _members(group, None, "all_gather")
+        if len(members) > 1:
+            wire = _outgoing(x, _pg(group))
+            rows = [torch.empty_like(wire) for _ in members]  # by rank
+            dist.all_gather(rows, wire, group=_pg(group))
+            rows = [row.to(x.device) for row in rows]
+        else:
+            rows = [x]
+        return torch.cat(rows, dim=axis) if tiled else torch.stack(rows, dim=axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every member's gradient of the whole output, summed: this
+        # member's piece of the sum is the gradient of its input
+        total = all_reduce(grad.clone(memory_format=torch.contiguous_format),
+                           ReduceOp.SUM, group=ctx.group)
+        me = _members(ctx.group, None, "all_gather").index(rank())
+        if ctx.tiled:
+            return total.narrow(ctx.axis, me * ctx.piece, ctx.piece), None, None, None
+        return total.select(ctx.axis, me), None, None, None
 
 
 def gather(x: torch.Tensor, dst: int, *, group: Group | None = None) -> torch.Tensor:
@@ -269,18 +296,37 @@ def all_to_all(x: torch.Tensor, *, split_axis: int, concat_axis: int) -> torch.T
     """Split ``x`` into n chunks along ``split_axis``, send chunk i to rank
     i, and concatenate what arrives (by source rank) along
     ``concat_axis``: the resharding step of Ulysses-style sequence
-    parallelism."""
+    parallelism and the token dispatch of expert parallelism
+    (`parallel.moe`).  Differentiable, as ``lax.all_to_all`` is: the
+    gradient goes back by the all-to-all with the two axes swapped."""
     n = world_size()
     if x.shape[split_axis] % n:
         raise ValueError(f"split axis {split_axis} size {x.shape[split_axis]} not "
                          f"divisible by world size {n}")
+    return _AllToAll.apply(x, split_axis, concat_axis)
+
+
+def _exchange(x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
+    n = world_size()
     if n == 1:
-        return x.detach().clone()
+        return x.clone()
     send = _outgoing(x.movedim(split_axis, 0), None)
     recv = torch.empty_like(send)  # chunk i of recv came from rank i
     dist.all_to_all_single(recv, send)
     chunks = recv.to(x.device).chunk(n, dim=0)
     return torch.cat([c.movedim(0, split_axis) for c in chunks], dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis):
+        ctx.axes = (split_axis, concat_axis)
+        return _exchange(x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_axis, concat_axis = ctx.axes
+        return _exchange(grad, concat_axis, split_axis), None, None
 
 
 def all_reduce_quantized(x: torch.Tensor, *, dtype: str = "int8") -> torch.Tensor:

@@ -22,6 +22,7 @@ import torch
 
 from tpu_dist_torch.data.mnist import Dataset
 from tpu_dist_torch.data.partition import DataPartitioner, Partition, equal_shards
+from tpu_dist_torch.device import to_device
 
 
 class Loader:
@@ -122,11 +123,7 @@ class HostLoader:
         stream = torch.cuda.Stream(self.device) if cuda else None
 
         def place(a: np.ndarray):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if not cuda:
-                return t
-            with torch.cuda.stream(stream):
-                return t.pin_memory().to(self.device, non_blocking=True)
+            return to_device(a, self.device, stream=stream)
 
         def work():
             try:

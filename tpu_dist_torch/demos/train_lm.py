@@ -31,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_dist_torch import comm, data, models
-from tpu_dist_torch.device import resolve_device
+from tpu_dist_torch.device import resolve_device, to_device
 from tpu_dist_torch.train import LMTrainConfig, LMTrainer, adamw, schedule
 
 
@@ -54,7 +54,7 @@ def run(trainer: LMTrainer, batch_at: Callable[[int], np.ndarray], steps: int, *
     losses = []
     t0 = time.perf_counter()
     for i in range(steps):
-        loss = trainer.train_step(trainer._to_device(batch_at(i)[rows]))
+        loss = trainer.train_step(to_device(batch_at(i)[rows], trainer.device))
         losses.append(loss)
         if i % max(steps // 6, 1) == 0 or i == steps - 1:
             log(f"  step {i:4d}  loss {loss.item():.4f}")

@@ -1,5 +1,6 @@
-"""Device selection for every entry point of the port, and `Replay`, the
-CUDA graph of a decode step.
+"""Device selection for every entry point of the port, `to_device`, the
+one host-to-device copy of a batch, and `Replay`, the CUDA graph of a
+decode step.
 
 The card is the default.  The CPU runs only when the caller asks for it, as
 the tests do; a missing card is an error, never a reason to carry on on the
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 
@@ -32,6 +34,18 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}; use 'cuda' or 'cpu'")
     return device
+
+
+def to_device(a: np.ndarray, device: torch.device, *, stream=None) -> torch.Tensor:
+    """A host array as a tensor on ``device``.  On the CPU the tensor shares
+    the array's memory; on the card the copy goes through pinned memory
+    without blocking (on ``stream`` when given), so the host queues the
+    next step while the card still runs this one."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    with torch.cuda.stream(stream):
+        return t.pin_memory().to(device, non_blocking=True)
 
 
 class Replay:

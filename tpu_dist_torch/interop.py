@@ -9,7 +9,9 @@ parameters), so layer ``i``'s ``"w"`` is ``"i.w"``, the index of the same
 layer in a port ``Sequential``.  Only the convolution weight changes
 layout (every 4-D leaf): JAX's HWIO against torch's OIHW.  Dense weights
 are (in, out) on both sides, and the learned position table stays
-(1, max_seq, dim), as do the ViT's 3-D ``cls`` and ``pos``.  The same
+(1, max_seq, dim), as do the ViT's 3-D ``cls`` and ``pos`` and the MoE
+LM's expert stacks ``blocks.<i>.moe.up`` (E, d, 4d) and ``.down`` (E, 4d,
+d).  The same
 mapping carries any tree shaped like the parameters, such as optimizer
 moments and momentum buffers, and the model state: a JAX model's
 ``state`` tree (batch-norm ``mean``/``var``) is the port module's

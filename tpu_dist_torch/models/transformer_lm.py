@@ -14,8 +14,16 @@ Inference: `init_cache` and `apply_cached` (the new tokens' keys and values
 written in place into a static-shape cache), `generate` (one multi-token
 prefill, then a Python loop of single-token steps; greedy, or a draw
 ``argmax(masked logits + Gumbel noise)`` whose noise comes from an explicit
-``torch.Generator``) and `generate_beam`.  The tensor-, sequence-, pipeline-
-and MoE-parallel forms are not ported yet (ROADMAP queue 1, item 10).
+``torch.Generator``) and `generate_beam`.
+
+Mixture of experts: ``moe_experts=E`` (0, or at least 2) swaps every
+block's MLP for a top-2 MoE (`models.vit.MoE`: ``moe.gate``, ``moe.up``,
+``moe.down``).  The forward, cached decode and the paged pool evaluate it
+densely (every expert on every token, no capacity bound); `apply_moe_ep`
+and `loss_moe_ep` run it expert-parallel, one expert per rank, tokens
+dispatched by all_to_all (`parallel.moe_mlp_top2`), which
+``LMTrainer(moe=True)`` trains.  The tensor-, sequence- and
+pipeline-parallel forms are not ported yet (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -28,7 +36,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpu_dist_torch import nn
+from tpu_dist_torch.comm.collectives import rank, world_size
 from tpu_dist_torch.models.vit import EncoderBlock
+from tpu_dist_torch.parallel.moe import moe_mlp_top2
 
 
 class TransformerLM(torch.nn.Module):
@@ -44,6 +54,8 @@ class TransformerLM(torch.nn.Module):
         pos_embedding: str = "learned",
         remat: bool = False,
         moe_experts: int = 0,
+        moe_capacity_factor: float = 2.0,
+        moe_balance_weight: float = 0.01,
         sliding_window: int | None = None,
         generator: torch.Generator | None = None,
     ):
@@ -52,11 +64,14 @@ class TransformerLM(torch.nn.Module):
             raise ValueError(
                 f"pos_embedding must be 'learned' or 'rope', got {pos_embedding!r}"
             )
-        if moe_experts:
-            raise NotImplementedError(
-                "moe_experts > 0 is not ported yet (ROADMAP queue 1, item 10: the "
-                "parallel strategies, with parallel/moe.py)"
+        if moe_experts < 0 or moe_experts == 1:
+            raise ValueError(
+                f"moe_experts must be 0 (dense MLP) or >= 2 (top-2 routing), got "
+                f"{moe_experts}"
             )
+        self.moe_experts = moe_experts
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_balance_weight = moe_balance_weight
         self.vocab = vocab
         self.dim = dim
         self.heads = heads
@@ -72,7 +87,7 @@ class TransformerLM(torch.nn.Module):
             EncoderBlock(
                 dim, heads, causal=True, kv_heads=kv_heads,
                 use_rope=pos_embedding == "rope", sliding_window=sliding_window,
-                generator=generator,
+                moe_experts=moe_experts, generator=generator,
             )
             for _ in range(depth)
         )
@@ -112,6 +127,45 @@ class TransformerLM(torch.nn.Module):
         h = self.ln(h)
         return h @ self.embed.table.T
 
+    def apply_moe_ep(self, tokens_local: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Expert-parallel forward: each rank holds its share of the batch
+        (attention is per sample, so the split is exact) and owns one
+        expert per block, row ``rank`` of the replicated ``up`` and
+        ``down``; every MoE layer dispatches its tokens to their routed
+        experts with one all_to_all each way (`parallel.moe_mlp_top2`).
+        Requires ``moe_experts == world size``.  With the parameters
+        replicated, the gradient is the uniform mean over ranks: a shared
+        parameter's gradient is each rank's own, an expert's is nonzero on
+        its owner alone, and the mean divides both by the world.
+
+        Returns ``(logits_local, balance)``, the mean GShard balance loss
+        over blocks, whose gradient reaches the routers."""
+        n = world_size()
+        if self.moe_experts != n:
+            raise ValueError(
+                f"moe_experts {self.moe_experts} != expert-axis size {n} (one expert "
+                "per rank)"
+            )
+        r = rank()
+        b, s = tokens_local.shape
+        h = self._trunk(tokens_local)
+        balances = []
+        for blk in self.blocks:
+            h = h + blk.attn(blk.ln1(h))
+            moe = blk.moe
+            y, stats = moe_mlp_top2(blk.ln2(h).reshape(b * s, self.dim), moe.gate, moe.up[r],
+                                    moe.down[r], capacity_factor=self.moe_capacity_factor)
+            h = h + y.reshape(b, s, self.dim)
+            balances.append(stats["balance_loss"])
+        return self.ln(h) @ self.embed.table.T, torch.stack(balances).mean()
+
+    def loss_moe_ep(self, tokens_local: torch.Tensor) -> torch.Tensor:
+        """Expert-parallel training loss: the local next-token loss plus
+        ``moe_balance_weight`` times the mean balance loss.  Its mean over
+        ranks is the global batch's loss."""
+        logits, balance = self.apply_moe_ep(tokens_local)
+        return lm_loss(logits.float(), tokens_local) + self.moe_balance_weight * balance
+
     # ---- autoregressive inference (KV cache) ----------------------------
 
     def init_cache(self, batch: int, cache_len: int | None = None, dtype=None,
@@ -134,7 +188,7 @@ class TransformerLM(torch.nn.Module):
         for blk, c in zip(self.blocks, cache):
             o, c["k"], c["v"] = blk.attn.apply_cached(blk.ln1(h), c["k"], c["v"], index)
             h = h + o
-            h = h + blk.mlp(blk.ln2(h))
+            h = h + blk.mlp_or_moe(blk.ln2(h))
         return self.ln(h) @ self.embed.table.T, cache
 
     def _check_room(self, s_p: int, steps: int, cache_len: int | None) -> int:

@@ -35,7 +35,13 @@ and by ``chip_smoke.py``:
 - `check_collectives`: every collective of `comm` on ranks sharing the card
   against its plain version on the stacked inputs;
 - `check_launch_restart`: `comm.launch` through a ``file://`` store returns
-  on attempt 1 after rank 1 fails attempt 0.
+  on attempt 1 after rank 1 fails attempt 0;
+- `check_moe_ep`: ``LMTrainer(moe=True)`` at a world of ranks, every rank
+  the same bits, optionally held to a reference's parameters, with its
+  all_to_all calls, dropped fractions and launch counts, and optionally
+  one traced step (`trace_moe_step`);
+- `check_moe_card_against_cpu`: a small MoE LM's step on the card against
+  the CPU, and its cached prefill against its forward.
 
 Each raises AssertionError when a check fails (also under ``python -O``)
 and returns what it measured.  Nothing here runs without a card.
@@ -911,3 +917,233 @@ def check_launch_restart(world: int = 2) -> dict:
                           restarts=1, timeout=300)
     _require(out == [(float(world), 1)] * world, f"launch returned {out}")
     return {"results": out, "seconds": time.perf_counter() - t0}
+
+
+# ------------------------------------------------------------ mixture of experts
+
+# The GPT-2-small-class LM's width (the [lm] model's), for the MoE checks.
+MOE_WIDTH = dict(vocab=32768, dim=768, heads=12, max_seq=1024, pos_embedding="rope")
+MOE_EP_TOL = dict(rtol=2e-3, atol=2e-4)  # the JAX package's tests/test_lm_mode_matrix.py
+
+
+class _MoEInstruments:
+    """While active, this process's all_to_all calls (`dist.all_to_all_single`)
+    are counted, the forward's (on the main thread) apart from the
+    backward's (on autograd's device thread, the tensors being on the
+    card), and the dropped fraction of every expert-parallel MoE layer
+    (`moe_mlp_top2`'s stats) is kept."""
+
+    def __enter__(self):
+        import threading
+
+        import torch.distributed as dist
+
+        from tpu_dist_torch.models import transformer_lm
+
+        self.calls = {"forward": 0, "backward": 0}
+        self.dropped = []
+        self._dist, self._lm = dist, transformer_lm
+        self._a2a, self._top2 = dist.all_to_all_single, transformer_lm.moe_mlp_top2
+
+        def a2a(*args, **kw):
+            main = threading.current_thread() is threading.main_thread()
+            self.calls["forward" if main else "backward"] += 1
+            return self._a2a(*args, **kw)
+
+        def top2(*args, **kw):
+            y, stats = self._top2(*args, **kw)
+            self.dropped.append(stats["dropped_fraction"].detach())
+            return y, stats
+
+        dist.all_to_all_single, transformer_lm.moe_mlp_top2 = a2a, top2
+        return self
+
+    def __exit__(self, *exc):
+        self._dist.all_to_all_single, self._lm.moe_mlp_top2 = self._a2a, self._top2
+
+
+def _launches() -> dict:
+    from tpu_dist_torch.ops import fused_dense
+
+    return {k.__name__: k.launches
+            for k in (*fa.KERNELS, fused_dense, pallas_ring.ring_all_reduce_pallas)}
+
+
+def _zero_launches() -> None:
+    from tpu_dist_torch.ops import fused_dense
+
+    for k in (*fa.KERNELS, fused_dense, pallas_ring.ring_all_reduce_pallas):
+        k.launches = 0
+
+
+def trace_moe_step(step) -> dict:
+    """Two ``step()`` calls under ``torch.profiler``, the first as its
+    warm-up (the profiler's start-up differs between ranks, and a rank
+    that starts first would wait for the others inside its collectives),
+    the second traced after a barrier with the group: this rank's device
+    ms, its all_to_all kernels' ms (NCCL's send/receive or all-to-all
+    kernels), its all-reduce kernels' ms, and the step's wall ms to the end
+    of its device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        step()
+        torch.cuda.synchronize()
+        comm.barrier()
+        prof.step()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.step()
+    comm.barrier()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+
+    def of(*tags):
+        return sum(e.self_device_time_total for e in kernels
+                   if any(t in e.key.lower() for t in tags)) / 1e3
+
+    a2a_ms = of("sendrecv", "alltoall")
+    return {"device_ms": device_us / 1e3, "all_to_all_ms": a2a_ms,
+            "all_reduce_ms": of("allreduce"), "wall_ms": wall * 1e3,
+            "all_to_all_share_of_device": a2a_ms * 1e3 / device_us if device_us else None,
+            "all_to_all_share_of_wall": a2a_ms / (wall * 1e3)}
+
+
+def _moe_fit_rank(lm_kw: dict, cfg_kw: dict, windows, lr: float | None,
+                  reference: str | None, trace: bool) -> dict:
+    """One rank of `check_moe_ep`: ``LMTrainer(moe=True)`` of a MoE LM built
+    from seed 0 (``sgd(lr)``, or AdamW when ``lr`` is None), fit on
+    ``windows`` under TPU_DIST_FLASH=1 without TF32.  Returns its losses,
+    seconds and tokens/s an epoch, its all_to_all calls (forward and
+    backward) and launch counts (set to 0 just before the fit, read just
+    after), the largest and the mean dropped fraction of its MoE layers'
+    calls, a digest of every parameter, and given ``reference`` (a file of
+    parameters) each parameter's largest difference from it; with
+    ``trace``, `trace_moe_step` of two more steps."""
+    import os
+
+    from tpu_dist_torch import models
+    from tpu_dist_torch.device import to_device
+    from tpu_dist_torch.train import LMTrainConfig, LMTrainer, sgd, sgd_rule
+
+    os.environ["TPU_DIST_FLASH"] = "1"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", torch.cuda.current_device())
+    lm = models.TransformerLM(**lm_kw, generator=torch.Generator().manual_seed(0)).to(device)
+    opt = None if lr is None else sgd_rule(sgd(lm.parameters(), lr))
+    trainer = LMTrainer(lm, LMTrainConfig(**cfg_kw, moe=True, log=lambda line: None),
+                        optimizer=opt, device=device)
+    torch.cuda.synchronize()
+    comm.barrier()
+    _zero_launches()
+    with _MoEInstruments() as seen:
+        history = trainer.fit(windows)
+    launches = _launches()
+    out = {"losses": torch.tensor([s.mean_loss for s in history], dtype=torch.float64),
+           "seconds": torch.tensor([s.seconds for s in history]),
+           "tokens_per_sec": torch.tensor([s.tokens_per_sec for s in history]),
+           "all_to_all_calls": seen.calls, "launches": launches,
+           "dropped": float(torch.stack(seen.dropped).max()),
+           "dropped_mean": float(torch.stack(seen.dropped).mean()),
+           "digests": {k: _digest(p.detach()) for k, p in lm.named_parameters()}}
+    if reference is not None:
+        want = torch.load(reference)
+        diffs, close = {}, True
+        for k, p in lm.named_parameters():
+            got = p.detach().cpu()
+            diffs[k] = float((got - want[k]).abs().max())
+            close = close and torch.allclose(got, want[k], **MOE_EP_TOL)
+        out["max_param_diff"], out["params_close"] = max(diffs.values()), close
+    if trace:
+        local = cfg_kw["global_batch"] // comm.world_size()
+        rows = windows[comm.rank() * local : (comm.rank() + 1) * local]
+        tokens = to_device(rows, device)
+        out["trace"] = trace_moe_step(lambda: trainer.train_step(tokens))
+    return out
+
+
+def check_moe_ep(world: int, lm_kw: dict, cfg_kw: dict, windows, *, lr: float | None = None,
+                 reference: str | None = None, trace: bool = False) -> dict:
+    """``LMTrainer(moe=True)`` at ``world`` ranks on the card (ranks sharing
+    one card over Gloo, or one card each over NCCL): every rank must end
+    with the same bits in every parameter, the same losses, finite and
+    no token dropped when the capacity suffices (reported); with
+    ``reference``, the parameters within `MOE_EP_TOL` of it.  Returns rank
+    0's numbers and every rank's all_to_all calls and launches."""
+    res = comm.spmd(_moe_fit_rank, lm_kw, cfg_kw, windows, lr, reference, trace,
+                    world=world, device="cuda", timeout=900)
+    calls = res["all_to_all_calls"]
+    digests = res["digests"]
+    differing = [k for k, d in digests.items() if d != [d[0]] * world]
+    _require(not differing, f"parameters whose bits differ between ranks: {differing[:5]} "
+             f"({len(differing)} of {len(digests)})")
+    losses = res["losses"]
+    _require(all(torch.equal(losses[q], losses[0]) for q in range(world)),
+             f"ranks report different losses {losses.tolist()}")
+    _require(bool(torch.isfinite(losses).all()), f"non-finite loss {losses.tolist()}")
+    if reference is not None:
+        _require(all(res["params_close"].tolist()),
+                 f"parameters off the reference by up to {res['max_param_diff'].tolist()}")
+    out = {"world": world, "losses": losses[0].tolist(),
+           "seconds": res["seconds"][0].tolist(),
+           "tokens_per_sec": res["tokens_per_sec"][0].tolist(),
+           "all_to_all_calls": {k: v.tolist() for k, v in calls.items()},
+           "dropped": res["dropped"].tolist(),
+           "dropped_mean": res["dropped_mean"].tolist(),
+           "launches": {k: v.tolist() for k, v in res["launches"].items()},
+           "parameters": len(digests)}
+    if reference is not None:
+        out["max_param_diff"] = res["max_param_diff"].tolist()
+    if trace:
+        out["trace"] = {k: v.tolist() if isinstance(v, torch.Tensor) else v
+                        for k, v in res["trace"].items()}
+    return out
+
+
+MOE_SMALL = dict(vocab=512, dim=128, depth=2, heads=2, max_seq=256, pos_embedding="rope",
+                 moe_experts=4)
+
+
+def check_moe_card_against_cpu(seed: int = 1) -> dict:
+    """One float32 step of a small MoE LM (`MOE_SMALL`, batch 2 x 256,
+    TPU_DIST_FLASH=1) on the card and on the CPU from the same
+    parameters: the losses within 1e-5, every gradient within rtol 1e-3,
+    atol 1e-5 (float32 sums in another order through a 512-way softmax and
+    two blocks), and on the card ``apply_cached``'s prefill logits within
+    1e-4 of the forward's (the plain attention against the flash kernels).
+    Returns the differences and the flash launches on the card."""
+    import os
+
+    from tpu_dist_torch import models
+    from tpu_dist_torch.train import LMTrainConfig, LMTrainer
+
+    os.environ["TPU_DIST_FLASH"] = "1"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", torch.cuda.current_device())
+    pair = [LMTrainer(models.TransformerLM(**MOE_SMALL,
+                                           generator=torch.Generator().manual_seed(seed)),
+                      LMTrainConfig(global_batch=2, log=lambda line: None), device=dev)
+            for dev in (device, "cpu")]
+    tokens = models.synthetic_tokens(2, 256, MOE_SMALL["vocab"], seed=3)
+    _zero_launches()
+    loss_card = pair[0].loss_and_grads(tokens.to(device)).item()
+    launches = _launches()
+    loss_cpu = pair[1].loss_and_grads(tokens).item()
+    grad_diff = 0.0
+    for name, p in pair[0].params.items():
+        want = pair[1].params[name].grad
+        torch.testing.assert_close(p.grad.cpu(), want, rtol=1e-3, atol=1e-5)
+        grad_diff = max(grad_diff, float((p.grad.cpu() - want).abs().max()))
+    _require(abs(loss_card - loss_cpu) <= 1e-5, f"card loss {loss_card}, CPU {loss_cpu}")
+    lm = pair[0].lm
+    with torch.no_grad():
+        dense = lm(tokens.to(device))
+        cached, _ = lm.apply_cached(tokens.to(device), lm.init_cache(2, 256), 0)
+    torch.testing.assert_close(cached, dense, rtol=1e-4, atol=1e-4)
+    return {"loss_card": loss_card, "loss_cpu": loss_cpu, "grad_max_abs_diff": grad_diff,
+            "cached_max_abs_diff": float((cached - dense).abs().max()),
+            "launches": launches}

@@ -1,9 +1,17 @@
-"""`tpu_dist_torch.parallel` — data parallelism and the ring collectives."""
+"""`tpu_dist_torch.parallel` — data parallelism, the ring collectives and
+expert parallelism."""
 
 from tpu_dist_torch.parallel.data_parallel import (
     accumulate_gradients,
     average_gradients,
     broadcast_parameters,
+)
+from tpu_dist_torch.parallel.moe import (
+    capacity_for,
+    moe_mlp,
+    moe_mlp_expert_choice,
+    moe_mlp_top2,
+    stack_expert_params,
 )
 from tpu_dist_torch.parallel.ring import (
     pad_to_multiple,
@@ -17,9 +25,14 @@ __all__ = [
     "accumulate_gradients",
     "average_gradients",
     "broadcast_parameters",
+    "capacity_for",
+    "moe_mlp",
+    "moe_mlp_expert_choice",
+    "moe_mlp_top2",
     "pad_to_multiple",
     "ring_all_gather",
     "ring_all_reduce",
     "ring_all_reduce_chunked",
     "ring_reduce_scatter",
+    "stack_expert_params",
 ]

@@ -151,5 +151,5 @@ def paged_apply_cached(lm, tokens, cache, block_tables, positions, write_mask,
     for blk, c in zip(lm.blocks, cache):
         h = h + _paged_attention(blk.attn, blk.ln1(h), c["k"], c["v"], block_tables,
                                  positions, write_mask, block_size)
-        h = h + blk.mlp(blk.ln2(h))
+        h = h + blk.mlp_or_moe(blk.ln2(h))
     return lm.ln(h) @ lm.embed.table.T, cache

@@ -1,7 +1,8 @@
-"""LMTrainer: data-parallel training of the TransformerLM over token windows.
+"""LMTrainer: data-parallel and expert-parallel training of the
+TransformerLM over token windows.
 
-The port of `tpu_dist.train.LMTrainer` on its data-parallel path: per step
-the dense next-token loss on the global batch (each rank its slice, over
+The port of `tpu_dist.train.LMTrainer` on its data-parallel and MoE paths:
+per step the dense next-token loss on the global batch (each rank its slice, over
 ``accum_steps`` microbatches), the gradients averaged over ranks with one
 all-reduce that also carries the loss, and AdamW (optionally under
 ``grad_clip``, and under ``nan_guard`` outermost, with the dynamic
@@ -18,12 +19,22 @@ type, cast where the JAX package casts (every floating leaf, before the
 forward), and the gradients land on the masters; the loss is a float32
 log-softmax of the logits.
 
+``moe=True`` trains a `TransformerLM` with ``moe_experts`` equal to the
+world size expert-parallel: the loss is `TransformerLM.loss_moe_ep` on this
+rank's tokens (one expert per rank, tokens dispatched by all_to_all, plus
+the weighted balance loss), and the gradients and the loss go through the
+same mean over ranks, which is the JAX step's uniform ``pmean`` contract.
+It composes with ``accum_steps``, ``compute_dtype``, ``grad_clip``,
+``nan_guard`` and ``loss_scale``, as in the JAX package.  Without ``moe``
+a model with experts trains data-parallel on its dense MoE evaluation.
+
 Checkpoints hold ``{"params", "opt_state"}`` in the JAX package's layout
 (`interop`), so either package's `LMTrainer.restore` reads the other's.
 
-Not ported yet (ROADMAP queue 1): fsdp, zero1, tensor, sequence, pipeline
-and MoE modes, compressed gradients, partition rules (item 10), in-flight
-steps and telemetry (item 11), ``generate`` (item 9).
+Not ported yet (ROADMAP queue 1): the fsdp, zero1, tensor, sequence and
+pipeline modes, compressed gradients, partition rules (item 10; the
+tensor, sequence and pipeline fields exist and refuse), in-flight steps
+and telemetry (item 11), ``generate`` (item 9).
 """
 
 from __future__ import annotations
@@ -65,6 +76,14 @@ class LMTrainConfig:
     # loss_scale arms the dynamic loss scale.
     nan_guard: bool = False
     loss_scale: float | None = None
+    # Expert-parallel MoE: lm.moe_experts == world size, one expert per
+    # rank (TransformerLM.loss_moe_ep).
+    moe: bool = False
+    # The JAX package's other model-parallel modes, not ported yet: set,
+    # they refuse.
+    tensor_parallel: str | None = None
+    sequence_parallel: str | None = None
+    pipeline: str | None = None
     log: Callable[[str], None] = print
 
 
@@ -79,8 +98,47 @@ class LMEpochStats:
     bad_steps: int | None = None
 
 
+def _check_modes(config: LMTrainConfig, lm: torch.nn.Module, world: int) -> None:
+    """The JAX LMTrainer's exclusion of its model-parallel modes, then the
+    modes the port lacks, then ``moe``'s expert count."""
+    modes = {"tensor_parallel": config.tensor_parallel,
+             "sequence_parallel": config.sequence_parallel, "pipeline": config.pipeline}
+    if sum(v is not None for v in modes.values()) + bool(config.moe) > 1:
+        raise ValueError(
+            "tensor_parallel, sequence_parallel, pipeline, and moe are mutually exclusive "
+            "trainer modes"
+        )
+    unported = [name for name, value in modes.items() if value is not None]
+    if unported:
+        raise NotImplementedError(
+            f"LMTrainer {unported[0]}: not ported yet (ROADMAP queue 1, item 10, the "
+            "parallel strategies); the port trains data-parallel, or moe=True"
+        )
+    experts = getattr(lm, "moe_experts", 0)
+    if config.moe and experts != world:
+        raise ValueError(
+            f"moe mode needs lm.moe_experts == data-axis size ({world}), got {experts}"
+        )
+
+
+class _StepLoss(torch.nn.Module):
+    """The loss of this rank's tokens as a module over the LM, so that
+    `functional_call` runs it on the cast parameters: the dense next-token
+    loss, or with ``moe`` `TransformerLM.loss_moe_ep`."""
+
+    def __init__(self, lm: torch.nn.Module, moe: bool):
+        super().__init__()
+        self.lm, self.moe = lm, moe
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.moe:
+            return self.lm.loss_moe_ep(tokens)
+        return lm_loss(self.lm(tokens).float(), tokens)
+
+
 class LMTrainer:
-    """Data-parallel LM training over ``(N, S)`` token windows.
+    """Data-parallel (or, with ``moe``, expert-parallel) LM training over
+    ``(N, S)`` token windows.
 
     The model arrives initialized; the trainer moves it to ``device``, in a
     process group overwrites every rank's parameters and buffers with rank
@@ -106,7 +164,9 @@ class LMTrainer:
             self.rank, self.world = dist.get_rank(), dist.get_world_size()
         else:
             self.rank, self.world = 0, 1
+        _check_modes(self.config, lm, self.world)
         self.lm = lm.to(self.device)
+        self._step_loss = _StepLoss(self.lm, self.config.moe)
         if self.distributed:
             broadcast_parameters(self.lm)
         self.params = dict(self.lm.named_parameters())
@@ -122,14 +182,12 @@ class LMTrainer:
 
     def _loss(self, tokens: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is None:
-            logits = self.lm(tokens)
-        else:
-            cast = {
-                k: p.to(self.compute_dtype) if p.is_floating_point() else p
-                for k, p in self.params.items()
-            }
-            logits = functional_call(self.lm, cast, (tokens,))
-        return lm_loss(logits.float(), tokens)
+            return self._step_loss(tokens)
+        cast = {
+            f"lm.{k}": p.to(self.compute_dtype) if p.is_floating_point() else p
+            for k, p in self.params.items()
+        }
+        return functional_call(self._step_loss, cast, (tokens,))
 
     def loss_and_grads(self, tokens: torch.Tensor) -> torch.Tensor:
         """Forward and backward on this rank's (b, s) tokens, over
@@ -176,12 +234,6 @@ class LMTrainer:
         loaded, epoch = checkpoint.restore(path, live)
         restore_leaves(live, loaded)
         return epoch
-
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
 
     def fit(
         self,

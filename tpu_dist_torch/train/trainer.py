@@ -41,7 +41,7 @@ from torch.utils.checkpoint import checkpoint as remat_call
 from tpu_dist_torch import interop
 from tpu_dist_torch.comm.collectives import all_reduce
 from tpu_dist_torch.data.loader import DistributedLoader
-from tpu_dist_torch.device import resolve_device
+from tpu_dist_torch.device import resolve_device, to_device
 from tpu_dist_torch.nn.layers import frozen_statistics
 from tpu_dist_torch.nn.losses import nll_loss
 from tpu_dist_torch.parallel.data_parallel import (
@@ -170,15 +170,6 @@ class Trainer:
             self.config.seed + 1 + 1000 * self.rank
         )
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """Host batch to the device.  On the card the copy goes through
-        pinned memory without blocking, so the host queues the next step
-        while the card still runs this one."""
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def _scores(self, x: torch.Tensor) -> torch.Tensor:
         """The training forward, float32 scores; in ``compute_dtype`` on a
         cast of the masters (gradients land on the masters)."""
@@ -296,7 +287,7 @@ class Trainer:
                 t0 = time.perf_counter()
                 total = torch.zeros((), dtype=torch.float64, device=self.device)
                 for xb, yb in loader.epoch(epoch):
-                    total += self.train_step(self._to_device(xb), self._to_device(yb))
+                    total += self.train_step(to_device(xb, self.device), to_device(yb, self.device))
                     if preempt.requested:
                         break
                 if preempt.requested:
@@ -348,9 +339,9 @@ class Trainer:
             if len(xs) < batch_size:
                 pad = np.zeros((batch_size - len(xs),) + xs.shape[1:], xs.dtype)
                 xs = np.concatenate([xs, pad])
-            scores = self.model(self._to_device(xs))
+            scores = self.model(to_device(xs, self.device))
             pred = scores[: len(ys)].argmax(-1)
-            correct += (pred == self._to_device(ys)).sum()
+            correct += (pred == to_device(ys, self.device)).sum()
         if self.distributed:
             all_reduce(correct)
         return correct.item() / n
