@@ -157,11 +157,30 @@ the exit code is nonzero:
           LM (vocab 512, dim 128, depth 2, 4 experts) on the card and on the
           CPU, and its ``apply_cached`` prefill against its forward on the
           card; the phase's seconds.
+[seq]     sequence parallelism at the GPT-2-small class's width with a
+          4096-token window (max_seq 4096).  The tensor-core flash forward,
+          dK/dV and dQ against their plain versions at the shape the Ulysses
+          core gives them (q, k, v (4, 6, 4096, 64) bfloat16, causal), timed
+          as in [flash].  Then ``LMTrainer(sequence_parallel="ulysses")`` at
+          world 2 on a (1, 2) data x seq mesh under ``comm.spmd``, both ranks
+          on this card (Gloo, all_to_all staged through host memory): depth
+          2, float32 without TF32, 3 sgd steps of 2 x 4096 against the dense
+          LMTrainer at world 1 from the same parameters (losses and
+          parameters within rtol 2e-3, atol 2e-4; the same bits on both
+          ranks; 4 all_to_all calls a block a step each way; the SIMT flash
+          kernels once a block a step); then depth 12, bfloat16, AdamW, 2
+          epochs of 4 steps of 4 x 4096 (8,192 tokens a rank a step) against
+          the dense LMTrainer at world 1 in bfloat16 on the same windows
+          from the same parameters (each epoch's loss within 2e-3
+          relative): losses falling, each tensor-core flash kernel once a
+          block a step on each rank and no other, tokens/s, peak memory,
+          the host seconds inside all_to_all and a traced step; the phase's
+          seconds.
 
 Then one JSON line per kernel (with its launches in each [image] run, on
-[moe] and its ``vit`` row of [flash]), the card's name and power limit,
-and the result line.  Without a CUDA device it exits nonzero before printing any
-result.
+[moe] and [seq], its ``vit`` row of [flash] and its ``seq_ulysses`` row
+of [seq]), the card's name and power limit, and the result line.  Without
+a CUDA device it exits nonzero before printing any result.
 
     python3 chip_smoke.py --lm-f32
 
@@ -172,16 +191,22 @@ result line.
     python3 chip_smoke.py --nccl
 
 needs four cards: it runs only [env], the build, [collectives], [dp],
-[image-dp] and [moe-ep], where each rank now has a card of its own, so the
-collectives take NCCL on the card and [dp]'s ring kernel crosses NVLink;
+[image-dp], [moe-ep] and [seq-ulysses], where each rank now has a card of
+its own, so the collectives take NCCL on the card and [dp]'s ring kernel
+crosses NVLink;
 [image-dp] (`ops.checks.check_image_dp`) trains ResNet-18 at world 4 under
 "psum" for 10 steps of 128 and requires every parameter and batch-norm
 buffer to hold the same bits on every rank; [moe-ep]
 (`ops.checks.check_moe_ep`) trains the MoE LM expert-parallel at world 4
 (full width and depth, 4 experts, one a rank; bfloat16, flash; 2 x 4 steps
 of 16 x 1024 tokens): losses falling, every parameter the same bits on
-every rank, tokens/s and a traced step's all_to_all share; no result
-line.
+every rank, tokens/s and a traced step's all_to_all share; [seq-ulysses]
+trains the [seq] LM sequence-parallel at world 4 on a (2, 2) data x seq
+mesh: at depth 2 in float32 against the dense LM at world 1 (as [seq]),
+then at full depth (bfloat16, AdamW, 2 x 4 steps of 8 x 4096) against
+the dense LM at world 1 in bfloat16 (as [seq]): losses falling, every
+parameter the same bits on every rank, tokens/s and a traced step; no
+result line.
 
     python3 chip_smoke.py --resume
 
@@ -200,6 +225,10 @@ runs only [env], the build and [serve]; no result line.
     python3 chip_smoke.py --moe
 
 runs only [env], the build and [moe]; no result line.
+
+    python3 chip_smoke.py --seq
+
+runs only [env], the build and [seq]; no result line.
 
     python3 chip_smoke.py --main
 
@@ -509,7 +538,7 @@ def visible_fraction(S: int, causal: bool, window, flops, fa) -> float:
     return fa.visible_mask(S, causal=causal, window=window).float().mean().item()
 
 
-def flash_cases(device, fa, F, flops, checks) -> list[dict]:
+def flash_cases(device, fa, F, flops, checks, cases=FLASH_CASES, phase="[flash]") -> list[dict]:
     """Each flash kernel of the case's route against its plain version on
     the same inputs (`ops.checks.check_flash_kernels`: the forward's out
     and lse, then dK/dV and dQ from the plain forward's lse and D =
@@ -521,7 +550,7 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
     each 2*bh*S*S*d times the visible fraction; ``tflops`` is those
     products over the kernel's time."""
     rows = []
-    for seed, (label, (b, h, S, d), dtype, causal, window) in enumerate(FLASH_CASES):
+    for seed, (label, (b, h, S, d), dtype, causal, window) in enumerate(cases):
         bh = b * h
         q, k, v, go = checks.flash_inputs(bh, S, d, dtype, device, seed=seed + 1)
         kw = dict(causal=causal, window=window)
@@ -530,7 +559,7 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
         errs, tol, route = checked["max_abs_err"], checked["tol"], checked["route"]
         want_lse, delta = checked["lse"], checked["delta"]
         if d8_f32:
-            print(f"[flash] dK elements that differ from the plain version at d = 8 float32: "
+            print(f"{phase} dK elements that differ from the plain version at d = 8 float32: "
                   f"{checked['dk_differing']} of {bh * S * d}; dQ elements: "
                   f"{checked['dq_differing']} of {bh * S * d}", flush=True)
 
@@ -572,7 +601,7 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
                 "library_ms": time_ms(library, iters, graph=False) if fn == "flash_fwd" else None,
                 "bound_ms": bound_ms, "bound_by": bound_by,
             })
-            print("[flash]", json.dumps(rows[-1]), flush=True)
+            print(phase, json.dumps(rows[-1]), flush=True)
 
         # forward + backward through the autograd Function (its D and the
         # cast of dO included) against SDPA's forward + backward
@@ -604,14 +633,11 @@ def flash_cases(device, fa, F, flops, checks) -> list[dict]:
             "library_ms": library_step_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
-        print("[flash]", json.dumps(rows[-1]), flush=True)
+        print(phase, json.dumps(rows[-1]), flush=True)
         rows.append(backward_pair(rows, label, route, library_step_ms, work, dtype))
-        print("[flash]", json.dumps(rows[-1]), flush=True)
+        print(phase, json.dumps(rows[-1]), flush=True)
         del q, k, v, go, checked, want_lse, delta, leaves, fwd_args, bwd_args, plain
         torch.cuda.empty_cache()
-    past = checks.check_flash_past_2_31(device)
-    print("[flash]", json.dumps({"case": "past 2^31", **past}), flush=True)
-    torch.cuda.empty_cache()
     return rows
 
 
@@ -1971,6 +1997,175 @@ def moe_ep_path(checks, card: str) -> None:
     check(run["losses"][1] < run["losses"][0], f"[moe-ep] losses {run['losses']} not falling")
 
 
+# [seq]: the GPT-2-small-class LM's width with a 4096-token window, trained
+# sequence-parallel (Ulysses) on a (data, seq) mesh.
+SEQ_LM = dict(GPT2_SMALL, max_seq=4096)
+# one attention call of the bf16 run after resharding: 4 local rows x
+# (12 heads / 2 seq ranks), the whole window
+SEQ_ATTENTION = (4, 6, 4096, 64)
+SEQ_F32 = (2, 3, 0.1)  # depth 2, float32: global batch, steps (one an epoch), sgd rate
+SEQ_BF16 = (4, 4)  # depth 12, bf16, AdamW: global batch, steps an epoch (two epochs)
+SEQ_NCCL = (8, 4)  # [seq-ulysses] (--nccl), world 4 on a (2, 2) mesh: the same
+
+
+def seq_a2a_share(run: dict, key: str) -> float:
+    """Rank 0's host seconds inside all_to_all (``key``: the backend's call,
+    or the whole call with its copies) over its fit's seconds."""
+    a2a = run[key]
+    return (a2a["forward"][0] + a2a["backward"][0]) / sum(run["seconds"])
+
+
+def seq_float32(device, checks, card: str, world: int, mesh: tuple, phase: str) -> dict:
+    """`ops.checks.check_seq_parallel` at ``world`` on a (data, seq) mesh of
+    ``mesh`` (ranks on this card over Gloo, or one a card over NCCL),
+    depth 2, float32 without TF32, 3 sgd steps of 2 x 4096, against the
+    dense LMTrainer at world 1 from the same parameters (losses and
+    parameters within the JAX package's rtol 2e-3, atol 2e-4); the same
+    bits on every rank; 4 all_to_all calls a block a step each way; the
+    SIMT flash kernels once a block a step."""
+    import tempfile
+
+    from tpu_dist_torch import models
+    from tpu_dist_torch.train import LMTrainConfig, LMTrainer, sgd, sgd_rule
+
+    batch, steps, lr = SEQ_F32
+    lm_kw = dict(SEQ_LM, depth=2)
+    depth, seq = lm_kw["depth"], lm_kw["max_seq"]
+    cfg = dict(epochs=steps, global_batch=batch)
+    windows = models.synthetic_tokens(batch, seq, lm_kw["vocab"], seed=7).numpy()
+    lm = models.TransformerLM(**lm_kw, generator=torch.Generator().manual_seed(0)).to(device)
+    dense = LMTrainer(lm, LMTrainConfig(**cfg, log=lambda line: None),
+                      optimizer=sgd_rule(sgd(lm.parameters(), lr)), device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    dense_losses = [s.mean_loss for s in dense.fit(windows)]
+    print(f"{phase} dense LM at world 1, {json.dumps(lm_kw)}, float32 (no TF32), sgd({lr}), "
+          f"{steps} steps of {batch} x {seq} tokens: losses {dense_losses} in "
+          f"{time.perf_counter() - t0} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated(device) / 1e9} GB", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        reference = os.path.join(tmp, "dense.pt")
+        torch.save({k: p.detach().cpu() for k, p in lm.named_parameters()}, reference)
+        del dense, lm
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        run = checks.check_seq_parallel(world, mesh, lm_kw, cfg, windows, lr=lr,
+                                        reference=reference)
+    print(f"{phase} LMTrainer(sequence_parallel='ulysses'), world {world} on a {mesh} data x seq "
+          f"mesh, {layout(world)}, float32: losses {run['losses']}, max |param - dense| per rank "
+          f"{run['max_param_diff']}, all_to_all calls per rank "
+          f"{json.dumps(run['all_to_all_calls'])} ({4 * depth * steps} each way expected), "
+          f"launches per rank {json.dumps(run['launches'])}, tokens/s {run['tokens_per_sec']}, "
+          f"peak device memory per rank {run['peak_gb']} GB, parameters the same bits on every "
+          f"rank ({run['parameters']} tensors); {time.perf_counter() - t0} s on {card}",
+          flush=True)
+    check(all(math.isclose(a, b, rel_tol=2e-3, abs_tol=2e-4)
+              for a, b in zip(run["losses"], dense_losses)),
+          f"{phase} sequence-parallel losses {run['losses']}, dense {dense_losses}")
+    a2a = {way: [4 * depth * steps] * world for way in ("forward", "backward")}
+    check(run["all_to_all_calls"] == a2a, f"{phase} all_to_all calls "
+          f"{run['all_to_all_calls']}, not {a2a}")
+    expected = {name: [depth * steps if name in LM_F32_ROUTE else 0] * world
+                for name in run["launches"]}
+    check(run["launches"] == expected, f"{phase} launches {run['launches']}, not {expected}")
+    return run
+
+
+# bf16 losses of the sequence-parallel fit against the dense one: the
+# forward runs the same per-row arithmetic on both sides; the weight
+# gradients are summed per rank in bf16 and then over ranks (one bf16
+# rounding more, about 4e-3 relative on a gradient), which AdamW's
+# normalised step carries into the loss at well under 2e-3 relative over
+# 8 steps.
+SEQ_BF16_RTOL = 2e-3
+
+
+def seq_fit(device, checks, card: str, world: int, mesh: tuple, batch: int,
+            steps_per_epoch: int, phase: str) -> dict:
+    """`ops.checks.check_seq_parallel` at full width and depth, bfloat16,
+    AdamW, 2 epochs of ``steps_per_epoch`` steps of ``batch`` x 4096,
+    against the dense LMTrainer at world 1 on the same windows from the same
+    parameters (each epoch's loss within `SEQ_BF16_RTOL`); losses falling,
+    every parameter the same bits on every rank, each tensor-core flash
+    kernel once a block a step on every rank and no other; tokens/s, peak
+    memory, a traced step's all_to_all share."""
+    from tpu_dist_torch import models
+    from tpu_dist_torch.train import LMTrainConfig, LMTrainer
+
+    steps, depth, seq = 2 * steps_per_epoch, SEQ_LM["depth"], SEQ_LM["max_seq"]
+    windows = models.synthetic_tokens(batch * steps_per_epoch, seq, SEQ_LM["vocab"]).numpy()
+    cfg = dict(epochs=2, global_batch=batch, compute_dtype="bfloat16")
+    lm = models.TransformerLM(**SEQ_LM, generator=torch.Generator().manual_seed(0)).to(device)
+    dense = LMTrainer(lm, LMTrainConfig(**cfg, log=lambda line: None), device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    dense_history = dense.fit(windows)
+    dense_losses = [s.mean_loss for s in dense_history]
+    print(f"{phase} dense LM at world 1, bfloat16, AdamW, TPU_DIST_FLASH=1, 2 epochs of "
+          f"{steps_per_epoch} steps of {batch} x {seq}: losses {dense_losses}, tokens/s "
+          f"{[s.tokens_per_sec for s in dense_history]} in {time.perf_counter() - t0} s, peak "
+          f"device memory {torch.cuda.max_memory_allocated(device) / 1e9} GB", flush=True)
+    del dense, lm
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = checks.check_seq_parallel(world, mesh, SEQ_LM, cfg, windows, trace=True)
+    local = batch // mesh[0] * seq // mesh[1]
+    print(f"{phase} LMTrainer(sequence_parallel='ulysses'), world {world} on a {mesh} data x seq "
+          f"mesh, {layout(world)}, {json.dumps(SEQ_LM)}, bfloat16, AdamW, TPU_DIST_FLASH=1, 2 "
+          f"epochs of {steps_per_epoch} steps of {batch} x {seq} ({local} tokens a rank a step): "
+          f"losses {run['losses']} (dense {dense_losses}), tokens/s {run['tokens_per_sec']}, "
+          f"epoch seconds {run['seconds']}, all_to_all calls per rank "
+          f"{json.dumps(run['all_to_all_calls'])}, "
+          f"host seconds per rank in the backend's all_to_all "
+          f"{json.dumps(run['all_to_all_seconds'])} (share of rank 0's fit "
+          f"{seq_a2a_share(run, 'all_to_all_seconds')}) and in the whole calls with their copies "
+          f"{json.dumps(run['all_to_all_call_seconds'])} (share "
+          f"{seq_a2a_share(run, 'all_to_all_call_seconds')}), launches per rank "
+          f"{json.dumps(run['launches'])}, peak device memory per rank {run['peak_gb']} GB; "
+          f"every parameter the same bits on every rank ({run['parameters']} tensors)",
+          flush=True)
+    print(f"{phase} traced step per rank (torch.profiler): {json.dumps(run['trace'])} on {card}; "
+          f"{time.perf_counter() - t0} s", flush=True)
+    expected = {name: [depth * steps if name in LM_ROUTE else 0] * world
+                for name in run["launches"]}
+    check(run["launches"] == expected, f"{phase} launches {run['launches']}, not {expected}")
+    a2a = {way: [4 * depth * steps] * world for way in ("forward", "backward")}
+    check(run["all_to_all_calls"] == a2a, f"{phase} all_to_all calls "
+          f"{run['all_to_all_calls']}, not {a2a}")
+    check(all(math.isclose(a, b, rel_tol=SEQ_BF16_RTOL)
+              for a, b in zip(run["losses"], dense_losses)),
+          f"{phase} bf16 sequence-parallel losses {run['losses']}, dense {dense_losses} "
+          f"(rtol {SEQ_BF16_RTOL})")
+    check(run["losses"][1] < run["losses"][0], f"{phase} losses {run['losses']} not falling")
+    return run
+
+
+def seq_path(device, fa, F, flops, checks, card: str) -> dict:
+    """[seq]: the three tensor-core flash kernels against their plain
+    versions at the Ulysses shape, then the float32 world-2 run against the
+    dense one, then the bf16 world-2 run at full depth."""
+    t0 = time.perf_counter()
+    os.environ["TPU_DIST_FLASH"] = "1"
+    rows = flash_cases(device, fa, F, flops, checks,
+                       cases=[("ulysses", SEQ_ATTENTION, torch.bfloat16, True, None)],
+                       phase="[seq]")
+    f32 = seq_float32(device, checks, card, 2, (1, 2), "[seq]")
+    bf16 = seq_fit(device, checks, card, 2, (1, 2), *SEQ_BF16, phase="[seq]")
+    print(f"[seq] phase {time.perf_counter() - t0} s on {card}", flush=True)
+    return {"rows": rows, "float32": f32, "bfloat16": bf16}
+
+
+def seq_ulysses_path(device, checks, card: str) -> None:
+    """[seq-ulysses] (--nccl): world 4 on a (2, 2) mesh, one rank a card
+    over NCCL: depth 2 in float32 against the dense LM at world 1, then
+    full depth, bfloat16, AdamW, 2 x 4 steps of 8 x 4096."""
+    t0 = time.perf_counter()
+    os.environ["TPU_DIST_FLASH"] = "1"
+    seq_float32(device, checks, card, 4, (2, 2), "[seq-ulysses]")
+    seq_fit(device, checks, card, 4, (2, 2), *SEQ_NCCL, phase="[seq-ulysses]")
+    print(f"[seq-ulysses] phase {time.perf_counter() - t0} s", flush=True)
+
+
 def build_all(_build) -> None:
     """One nvcc per source, all started together."""
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -2009,9 +2204,13 @@ def main() -> None:
     print("[env] TF32 off for matmul and cuDNN (float32 computed in float32)", flush=True)
 
     if sys.argv[1:] not in ([], ["--lm-f32"], ["--nccl"], ["--resume"], ["--main"], ["--image"],
-                            ["--serve"], ["--moe"]):
+                            ["--serve"], ["--moe"], ["--seq"]):
         sys.exit("usage: python3 chip_smoke.py [--lm-f32 | --nccl | --resume | --main | --image "
-                 "| --serve | --moe]")
+                 "| --serve | --moe | --seq]")
+    if sys.argv[1:] == ["--seq"]:
+        build_all(_build)
+        seq_path(device, fa, F, flops, checks, card_and_power_limit())
+        return
     if sys.argv[1:] == ["--moe"]:
         build_all(_build)
         moe_path(device, fa, ops, checks, flops, card_and_power_limit())
@@ -2048,6 +2247,7 @@ def main() -> None:
         dp_path(checks, card_and_power_limit())
         image_dp_path(checks, card_and_power_limit())
         moe_ep_path(checks, card_and_power_limit())
+        seq_ulysses_path(device, checks, card_and_power_limit())
         return
 
     build_all(_build)
@@ -2055,6 +2255,9 @@ def main() -> None:
     rows = matmul_cases(device, ops, F)
     launches = main_path(device, ops, card_name)["launches"]
     flash_rows = flash_cases(device, fa, F, flops, checks)
+    past = checks.check_flash_past_2_31(device)
+    print("[flash]", json.dumps({"case": "past 2^31", **past}), flush=True)
+    torch.cuda.empty_cache()
     lm = lm_path(device, fa, card_and_power_limit())  # tokens/s beside the card's power limit
     ring = ring_path(checks, flops, metrics, card_name)
     collectives_path(checks, card_and_power_limit())
@@ -2063,6 +2266,9 @@ def main() -> None:
     image = image_path(device, fa, ops, checks, card_and_power_limit())
     served = serve_path(device, fa, ops, card_and_power_limit())
     moe = moe_path(device, fa, ops, checks, flops, card_and_power_limit())
+    seq = seq_path(device, fa, F, flops, checks, card_and_power_limit())
+    seq_launches = {"world 2, float32, 3 steps, per rank": seq["float32"]["launches"],
+                    "world 2, bf16, 8 steps, per rank": seq["bfloat16"]["launches"]}
 
     step = rows[:2]  # the two launches of one training step
     kernel = {
@@ -2083,6 +2289,7 @@ def main() -> None:
         "launches_image": image_launches(image, "fused_dense"),
         "launches_serve": served["launches"]["fused_dense"],
         "launches_moe": moe["launches"]["fused_dense"],
+        "launches_seq": {run: n["fused_dense"] for run, n in seq_launches.items()},
         "image_heads": [{key: r[key] for key in ("m", "k", "n", "dtype", "max_abs_err", "ms",
                                                  "plain_ms", "bound_ms", "bound_by",
                                                  "library_ms")}
@@ -2127,6 +2334,12 @@ def main() -> None:
                                  **{f"EP world 2, {compute}, 3 steps, per rank":
                                     moe["ep"][compute]["launches"][name]
                                     for compute in ("float32", "bfloat16")}}
+        entry["launches_seq"] = {run: n[name] for run, n in seq_launches.items()}
+        if on_lm:  # the same kernel at the Ulysses shape of [seq]
+            row = next(r for r in seq["rows"] if r["kernel"] == name)
+            entry["seq_ulysses"] = {key: row[key] for key in (
+                "q", "dtype", "causal", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "tflops")}
         vit_row = next(r for r in flash_rows
                        if r["kernel"] == name and r["case"] == ("vit" if on_lm else "vit_f32"))
         entry["vit"] = {key: vit_row[key] for key in ("q", "dtype", "causal", "max_abs_err", "ms",
@@ -2149,6 +2362,7 @@ def main() -> None:
         "launches_moe": {f"EP world 2, {compute}, per rank":
                          moe["ep"][compute]["launches"]["ring_all_reduce_pallas"]
                          for compute in ("float32", "bfloat16")},
+        "launches_seq": {run: n["ring_all_reduce_pallas"] for run, n in seq_launches.items()},
         "schedule": RING_SCHEDULE,
         "work": f"one call of {timing['bytes_per_rank']} bytes of float32 per rank at world "
                 f"{timing['world']}, every rank a process on this one card; max_abs_err: that "

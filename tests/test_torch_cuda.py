@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain versions, on the card: fused dense
 (both routes), the flash-attention kernels (the tensor-core forward, dK/dV
 and dQ, the SIMT forward, dK/dV and dQ) and the ring all-reduce across
-processes; and the MoE LM's step on the card against the CPU.  The flash,
-ring and MoE checks are the port's own (`tpu_dist_torch.ops.checks`), which
-``chip_smoke.py`` runs too.
+processes; the MoE LM's step on the card against the CPU; and sequence
+parallelism (``-k seq``: the flash kernels at the Ulysses shape, a grouped
+all_to_all, the Ulysses trainer against the dense one).  The flash, ring,
+MoE and sequence-parallel checks are the port's own
+(`tpu_dist_torch.ops.checks`), which ``chip_smoke.py`` runs too.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one.  They import neither jax nor the JAX package, so they run on a
@@ -471,3 +473,54 @@ def test_moe_lm_on_the_card_matches_the_cpu(card):
     card) against the same step on the CPU, and its cached prefill against
     its forward on the card (`ops.checks.check_moe_card_against_cpu`)."""
     checks.check_moe_card_against_cpu()
+
+
+# ---------------------------------------------------------------- sequence parallelism
+
+# one attention call of the sequence-parallel [seq] run after Ulysses
+# resharding: (batch 4) x (heads 12 / 2 ranks), the whole 4096-token window
+SEQ_ULYSSES_ATTENTION = (4 * 6, 4096, 64)
+SEQ_SMALL = dict(vocab=512, dim=128, depth=2, heads=4, max_seq=1024, pos_embedding="rope")
+
+
+def test_flash_kernels_at_the_seq_ulysses_shape(card):
+    """The tensor-core forward, dK/dV and dQ against their plain versions at
+    the shape the Ulysses core gives them (bf16, causal)."""
+    bh, S, d = SEQ_ULYSSES_ATTENTION
+    q, k, v, go = checks.flash_inputs(bh, S, d, torch.bfloat16, card, seed=5)
+    assert checks.check_flash_kernels(q, k, v, go, causal=True, window=None)["route"] == "sm90"
+
+
+def test_seq_all_to_all_over_a_mesh_axis_on_the_card(card):
+    """``all_to_all`` over the seq group of a (2, 2) mesh on CUDA tensors of
+    four ranks sharing the card, and its gradient, exactly."""
+    checks.check_seq_all_to_all()
+
+
+def test_seq_trainer_on_the_card_matches_the_dense_one(card, tmp_path):
+    """``LMTrainer(sequence_parallel="ulysses")`` at world 2 on the card (a
+    small LM, 2 x 1024 tokens, float32, 2 sgd steps) against the dense
+    LMTrainer at world 1 from the same parameters."""
+    import os
+
+    from tpu_dist_torch import models
+    from tpu_dist_torch.train import LMTrainConfig, LMTrainer, sgd, sgd_rule
+
+    os.environ["TPU_DIST_FLASH"] = "1"
+    cfg = dict(epochs=2, global_batch=2)
+    windows = models.synthetic_tokens(2, 1024, SEQ_SMALL["vocab"], seed=3).numpy()
+    lm = models.TransformerLM(**SEQ_SMALL, generator=torch.Generator().manual_seed(0)).to(card)
+    dense = LMTrainer(lm, LMTrainConfig(**cfg, log=lambda line: None),
+                      optimizer=sgd_rule(sgd(lm.parameters(), 0.1)), device=card)
+    dense_losses = [s.mean_loss for s in dense.fit(windows)]
+    reference = str(tmp_path / "dense.pt")
+    torch.save({k: p.detach().cpu() for k, p in lm.named_parameters()}, reference)
+    run = checks.check_seq_parallel(2, (1, 2), SEQ_SMALL, cfg, windows, lr=0.1,
+                                    reference=reference)
+    torch.testing.assert_close(torch.tensor(run["losses"], dtype=torch.float64),
+                               torch.tensor(dense_losses, dtype=torch.float64),
+                               **checks.MOE_EP_TOL)
+    steps, depth = 2, SEQ_SMALL["depth"]
+    assert run["all_to_all_calls"] == {way: [4 * depth * steps] * 2
+                                       for way in ("forward", "backward")}
+    assert run["launches"]["flash_fwd_simt"] == [depth * steps] * 2

@@ -40,6 +40,8 @@ def test_importing_the_port_loads_neither_jax_nor_tpu_dist():
         "import tpu_dist_torch.serve, tpu_dist_torch.observe, tpu_dist_torch.export\n"
         "import tpu_dist_torch.demos.generate, tpu_dist_torch.demos.serve_demo\n"
         "import tpu_dist_torch.parallel.moe, tpu_dist_torch.demos.train_lm_modes\n"
+        "import tpu_dist_torch.comm.mesh, tpu_dist_torch.parallel.ulysses\n"
+        "import tpu_dist_torch.parallel.ring_attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpu_dist'))\n"
         "assert not bad, bad\n"
     )
@@ -74,6 +76,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         train_lm_modes.main(["--mode", "moe", "--world", "2"])
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        train_lm_modes.main(["--mode", "seq_ulysses", "--world", "4"])
 
 
 def test_cpu_moe_never_touches_the_build(monkeypatch):

@@ -181,6 +181,17 @@ def test_known_answer_send_and_receive_zeros():
     np.testing.assert_array_equal(one_pair[-1], workers.cases(world)["sendrecv_one_pair"][1][0])
 
 
+def test_pallas_cpu_path_over_a_subgroup():
+    """A `comm.Group` of ranks 1 and 3 of a world of 4: its members get the
+    sum of their two inputs, the other ranks keep theirs."""
+    out = comm.spmd(workers.pallas_over_a_subgroup, world=4, device="cpu", timeout=120)
+    x, y = out["x"], out["y"]
+    for r in (1, 3):
+        torch.testing.assert_close(y[r], x[1] + x[3], rtol=0, atol=0)
+    for r in (0, 2):
+        torch.testing.assert_close(y[r], x[r], rtol=0, atol=0)
+
+
 # ------------------------------------------------- the kernel's cut
 
 

@@ -193,3 +193,13 @@ def hang_on_rank_1():
 
         time.sleep(600)
     return torch.zeros(1)
+
+
+def pallas_over_a_subgroup() -> dict:
+    """One rank of a world of 4: ``ring_all_reduce_pallas`` of a CPU tensor
+    over the `comm.Group` of ranks 1 and 3 (every rank makes the group,
+    only its members call), and each rank's input."""
+    group = comm.new_group([1, 3])
+    x = torch.arange(5, dtype=torch.float32) * (comm.rank() + 1)
+    y = ops.ring_all_reduce_pallas(x, group) if comm.rank() in group.ranks else x
+    return {"x": x, "y": y}

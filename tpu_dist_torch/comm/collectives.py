@@ -21,13 +21,27 @@ where torch leaves them open:
   every rank but ``dst`` with its input.
 
 ``all_reduce``, ``reduce`` and ``broadcast`` work in place, as torch's do,
-and return the tensor; the others return new tensors.  ``all_gather`` and
-``all_to_all`` carry gradients, as the JAX package's ``lax`` collectives
-do (expert parallelism trains through them); the other calls do not yet.
+and return the tensor; the others return new tensors.
+
+Every call carries gradients, as the JAX package's ``lax`` collectives do:
+the backward of each is the transpose JAX takes through its definition
+(SUM's all-reduce transposes to an all-reduce, ``psum_scatter`` to a tiled
+all-gather, ``ppermute`` to the inverse permutation, ``broadcast`` to a
+reduce to ``src``, ``gather`` and ``scatter`` to each other), and a rank
+outside the group passes its cotangent through.  PRODUCT's gradient is the
+summed cotangent times the product of the other members' inputs; MAX and
+MIN have none in JAX (``pmax``/``pmin``), and their backward raises.  A
+tensor that does not require grad takes the plain call.  The backward is a
+collective too: every rank of the group must differentiate through the
+call, with inputs that require grad alike.
+
 One rule for every call: a CUDA tensor in a Gloo group (ranks that share a
 card) goes through host memory, the backward's collective too; under NCCL
 it stays on the card; nothing on a CUDA tensor falls back to another path.
-Without a process group a call runs a world of one.
+Without a process group a call runs a world of one.  With ``group`` the
+point-to-point calls and ``all_to_all`` run among its members, indexed by
+their position in ``group.ranks`` (a mesh axis, `comm.mesh`), as the JAX
+package's calls run over one named axis.
 """
 
 from __future__ import annotations
@@ -80,14 +94,55 @@ def new_group(ranks: Sequence[int]) -> Group:
     return Group(group.ranks, dist.new_group(list(group.ranks)))
 
 
-def rank(group=None) -> int:
-    """``dist.get_rank()``; 0 without a process group."""
-    return dist.get_rank(group) if dist.is_initialized() else 0
+def rank(group: Group | None = None) -> int:
+    """``dist.get_rank()``: this process's rank in the world, or with
+    ``group`` its index among ``group.ranks`` (the JAX package's
+    ``axis_index`` of a mesh axis); 0 without a process group."""
+    me = dist.get_rank() if dist.is_initialized() else 0
+    if group is None:
+        return me
+    if me not in group.ranks:
+        raise ValueError(f"rank {me} not in group {group.ranks}")
+    return group.ranks.index(me)
 
 
-def world_size(group=None) -> int:
-    """``dist.get_world_size()``; 1 without a process group."""
-    return dist.get_world_size(group) if dist.is_initialized() else 1
+def world_size(group: Group | None = None) -> int:
+    """``dist.get_world_size()``, or the size of ``group``; 1 without a
+    process group."""
+    if group is not None:
+        return len(group.ranks)
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _tracks_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _others_product(x: torch.Tensor, group: Group | None) -> torch.Tensor:
+    """The product of every other member's ``x``: what one member's input
+    multiplies in a PRODUCT reduction."""
+    stacked = all_gather(x, group=group)  # (members, ...) by rank
+    me = _members(group, None, "all_reduce").index(rank())
+    return torch.cat([stacked[:me], stacked[me + 1 :]]).prod(dim=0)
+
+
+def _differentiable(op: ReduceOp, what: str) -> None:
+    """Raise for the ops JAX cannot differentiate (``pmax``, ``pmin``)."""
+    if op in (ReduceOp.MAX, ReduceOp.MIN):
+        raise NotImplementedError(
+            f"{what} with ReduceOp.{op.name} has no gradient: the JAX package's "
+            f"p{op.name.lower()} has no differentiation rule")
+
+
+def _grad_of_reduction(op: ReduceOp, total: torch.Tensor, x, group, what: str) -> torch.Tensor:
+    """One member's gradient of a reduction whose members' cotangents sum
+    to ``total``: SUM passes it, AVG divides it by the members, PRODUCT
+    multiplies it by the other members' inputs ``x``."""
+    if op is ReduceOp.AVG:
+        return total / len(_members(group, None, what))
+    if op is ReduceOp.PRODUCT:
+        return total * _others_product(x, group)
+    return total
 
 
 def _host_staged(x: torch.Tensor, group) -> bool:
@@ -97,9 +152,10 @@ def _host_staged(x: torch.Tensor, group) -> bool:
 
 
 def _outgoing(x: torch.Tensor, group) -> torch.Tensor:
-    """``x`` as the group's backend sends it: a host copy for a CUDA tensor
-    under Gloo, else ``x`` itself (contiguous)."""
-    return x.detach().cpu() if _host_staged(x, group) else x.detach().contiguous()
+    """``x`` as the group's backend sends it, contiguous: a host copy for a
+    CUDA tensor under Gloo, else ``x`` itself."""
+    x = x.detach().contiguous()
+    return x.cpu() if _host_staged(x, group) else x
 
 
 def _check_root(root: int, what: str) -> None:
@@ -135,6 +191,8 @@ def all_reduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM, *,
     members = _members(group, None, "all_reduce")
     if len(members) <= 1 or rank() not in members:
         return tensor  # a world (or group) of one, or a rank outside the group
+    if _tracks_grad(tensor):
+        return _AllReduce.apply(tensor, op, group)
     staged = _host_staged(tensor, _pg(group))
     wire = tensor.detach().cpu() if staged else tensor
     dist.all_reduce(wire, op=_TORCH_OPS[op], group=_pg(group))
@@ -143,6 +201,23 @@ def all_reduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM, *,
     if op is ReduceOp.AVG:
         tensor.div_(len(members))
     return tensor
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, op, group):
+        ctx.op, ctx.group = op, group
+        ctx.x = tensor.detach().clone() if op is ReduceOp.PRODUCT else None
+        all_reduce(tensor.detach(), op, group=group)
+        ctx.mark_dirty(tensor)
+        return tensor
+
+    @staticmethod
+    def backward(ctx, grad):
+        _differentiable(ctx.op, "all_reduce")
+        total = all_reduce(grad.clone(memory_format=torch.contiguous_format), ReduceOp.SUM,
+                           group=ctx.group)
+        return _grad_of_reduction(ctx.op, total, ctx.x, ctx.group, "all_reduce"), None, None
 
 
 def reduce(tensor: torch.Tensor, dst: int, op: ReduceOp = ReduceOp.SUM, *,
@@ -154,6 +229,8 @@ def reduce(tensor: torch.Tensor, dst: int, op: ReduceOp = ReduceOp.SUM, *,
     members = _members(group, dst, "reduce dst")
     if len(members) <= 1 or rank() not in members:
         return tensor
+    if _tracks_grad(tensor):
+        return _Reduce.apply(tensor, dst, op, group)
     # a copy: the backend may use every rank's buffer, and only dst's changes
     staged = _host_staged(tensor, _pg(group))
     wire = tensor.detach().cpu() if staged else tensor.detach().clone()
@@ -165,6 +242,27 @@ def reduce(tensor: torch.Tensor, dst: int, op: ReduceOp = ReduceOp.SUM, *,
     return tensor
 
 
+class _Reduce(torch.autograd.Function):
+    """JAX's ``where(rank == dst, all_reduce(x), x)``: every member's input
+    reaches dst's output, and every rank but dst keeps its own."""
+
+    @staticmethod
+    def forward(ctx, tensor, dst, op, group):
+        ctx.dst, ctx.op, ctx.group = dst, op, group
+        ctx.x = tensor.detach().clone() if op is ReduceOp.PRODUCT else None
+        reduce(tensor.detach(), dst, op, group=group)
+        ctx.mark_dirty(tensor)
+        return tensor
+
+    @staticmethod
+    def backward(ctx, grad):
+        _differentiable(ctx.op, "reduce")
+        from_dst = broadcast(grad.clone(memory_format=torch.contiguous_format), ctx.dst,
+                             group=ctx.group)
+        out = _grad_of_reduction(ctx.op, from_dst, ctx.x, ctx.group, "reduce")
+        return (out if rank() == ctx.dst else out + grad), None, None, None
+
+
 def broadcast(tensor: torch.Tensor, src: int, *, group: Group | None = None) -> torch.Tensor:
     """``dist.broadcast(tensor, src)`` in place (tuto.md:195): every rank
     ends with ``src``'s value.  With ``group``, ``src`` must be a member and
@@ -173,12 +271,32 @@ def broadcast(tensor: torch.Tensor, src: int, *, group: Group | None = None) -> 
     members = _members(group, src, "broadcast src")
     if len(members) <= 1 or rank() not in members:
         return tensor
+    if _tracks_grad(tensor):
+        return _Broadcast.apply(tensor, src, group)
     staged = _host_staged(tensor, _pg(group))
     wire = tensor.detach().cpu() if staged else tensor
     dist.broadcast(wire, src, group=_pg(group))
     if staged:
         tensor.copy_(wire)
     return tensor
+
+
+class _Broadcast(torch.autograd.Function):
+    """JAX's ``psum(where(rank == src, x, 0))``: src's input reaches every
+    member, so src's gradient is the members' cotangents summed."""
+
+    @staticmethod
+    def forward(ctx, tensor, src, group):
+        ctx.src, ctx.group = src, group
+        broadcast(tensor.detach(), src, group=group)
+        ctx.mark_dirty(tensor)
+        return tensor
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = reduce(grad.clone(memory_format=torch.contiguous_format), ctx.src,
+                       group=ctx.group)
+        return (total if rank() == ctx.src else torch.zeros_like(grad)), None, None
 
 
 def all_gather(x: torch.Tensor, *, axis: int = 0, tiled: bool = False,
@@ -242,6 +360,8 @@ def gather(x: torch.Tensor, dst: int, *, group: Group | None = None) -> torch.Te
     if len(members) == 1:
         out[me] = x
         return out
+    if _tracks_grad(x):
+        return _Gather.apply(x, dst, group)
     wire = _outgoing(x, _pg(group))
     rows = [torch.empty_like(wire) for _ in members] if me == dst else None
     dist.gather(wire, rows, dst=dst, group=_pg(group))
@@ -249,6 +369,21 @@ def gather(x: torch.Tensor, dst: int, *, group: Group | None = None) -> torch.Te
         for r, row in zip(members, rows):
             out[r] = row
     return out
+
+
+class _Gather(torch.autograd.Function):
+    """Member r's input is row r of dst's output: its gradient is that row
+    of dst's cotangent, scattered back."""
+
+    @staticmethod
+    def forward(ctx, x, dst, group):
+        ctx.dst, ctx.group = dst, group
+        return gather(x.detach(), dst, group=group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows = grad[list(_members(ctx.group, None, "gather"))]
+        return scatter(rows, ctx.dst, group=ctx.group), None, None
 
 
 def scatter(xs: torch.Tensor, src: int, *, group: Group | None = None) -> torch.Tensor:
@@ -270,10 +405,27 @@ def scatter(xs: torch.Tensor, src: int, *, group: Group | None = None) -> torch.
         return xs.new_zeros(xs.shape[1:])
     if len(members) == 1:
         return xs[0].clone()
+    if _tracks_grad(xs):
+        return _Scatter.apply(xs, src, group)
     chunks = list(_outgoing(xs, _pg(group)).unbind(0))
     out = torch.empty_like(chunks[0])
     dist.scatter(out, chunks if me == src else None, src=src, group=_pg(group))
     return out.to(xs.device)
+
+
+class _Scatter(torch.autograd.Function):
+    """Chunk i of src's input is member i's output: src's gradient is the
+    members' cotangents gathered, every other rank's zeros."""
+
+    @staticmethod
+    def forward(ctx, xs, src, group):
+        ctx.src, ctx.group = src, group
+        return scatter(xs.detach(), src, group=group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows = gather(grad, ctx.src, group=ctx.group)[list(_members(ctx.group, None, "scatter"))]
+        return (rows if rank() == ctx.src else torch.zeros_like(rows)), None, None
 
 
 def reduce_scatter(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM, *,
@@ -282,51 +434,73 @@ def reduce_scatter(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM, *,
     (``dim / n`` long) of the reduction along ``scatter_axis``, for every
     op.  The dimension must divide by the world size.  The reduction is an
     ``all_reduce`` of a copy, sliced (Gloo has no reduce-scatter for every
-    release of torch)."""
+    release of torch).  Its gradient is the cotangents all-gathered along
+    ``scatter_axis`` (``psum_scatter``'s transpose)."""
     n = world_size()
     if x.shape[scatter_axis] % n:
         raise ValueError(f"scatter axis {scatter_axis} size {x.shape[scatter_axis]} not "
                          f"divisible by world size {n}")
+    if _tracks_grad(x):
+        return _ReduceScatter.apply(x, op, scatter_axis)
     piece = x.shape[scatter_axis] // n
     reduced = all_reduce(x.detach().clone(), op)
     return reduced.narrow(scatter_axis, rank() * piece, piece).clone()
 
 
-def all_to_all(x: torch.Tensor, *, split_axis: int, concat_axis: int) -> torch.Tensor:
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, op, scatter_axis):
+        ctx.op, ctx.axis = op, scatter_axis
+        ctx.x = x.detach().clone() if op is ReduceOp.PRODUCT else None
+        return reduce_scatter(x.detach(), op, scatter_axis=scatter_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        _differentiable(ctx.op, "reduce_scatter")
+        # every rank's cotangent, each in place of its own chunk
+        total = all_gather(grad, axis=ctx.axis, tiled=True)
+        return _grad_of_reduction(ctx.op, total, ctx.x, None, "reduce_scatter"), None, None
+
+
+def all_to_all(x: torch.Tensor, *, split_axis: int, concat_axis: int,
+               group: Group | None = None) -> torch.Tensor:
     """Split ``x`` into n chunks along ``split_axis``, send chunk i to rank
     i, and concatenate what arrives (by source rank) along
     ``concat_axis``: the resharding step of Ulysses-style sequence
-    parallelism and the token dispatch of expert parallelism
-    (`parallel.moe`).  Differentiable, as ``lax.all_to_all`` is: the
-    gradient goes back by the all-to-all with the two axes swapped."""
-    n = world_size()
+    parallelism (`parallel.ulysses`) and the token dispatch of expert
+    parallelism (`parallel.moe`).  With ``group``, n is the group's size
+    and chunk i goes to its i-th member; every member calls it.
+    Differentiable, as ``lax.all_to_all`` is: the gradient goes back by the
+    all-to-all with the two axes swapped, over the same group."""
+    n = world_size(group)
+    rank(group)  # raises outside the group
     if x.shape[split_axis] % n:
         raise ValueError(f"split axis {split_axis} size {x.shape[split_axis]} not "
                          f"divisible by world size {n}")
-    return _AllToAll.apply(x, split_axis, concat_axis)
+    return _AllToAll.apply(x, split_axis, concat_axis, group)
 
 
-def _exchange(x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
-    n = world_size()
+def _exchange(x: torch.Tensor, split_axis: int, concat_axis: int, group) -> torch.Tensor:
+    n = world_size(group)
     if n == 1:
         return x.clone()
-    send = _outgoing(x.movedim(split_axis, 0), None)
-    recv = torch.empty_like(send)  # chunk i of recv came from rank i
-    dist.all_to_all_single(recv, send)
+    send = _outgoing(x.movedim(split_axis, 0), _pg(group))
+    recv = torch.empty_like(send)  # chunk i of recv came from member i
+    dist.all_to_all_single(recv, send, group=_pg(group))
     chunks = recv.to(x.device).chunk(n, dim=0)
     return torch.cat([c.movedim(0, split_axis) for c in chunks], dim=concat_axis)
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, split_axis, concat_axis):
-        ctx.axes = (split_axis, concat_axis)
-        return _exchange(x, split_axis, concat_axis)
+    def forward(ctx, x, split_axis, concat_axis, group):
+        ctx.axes, ctx.group = (split_axis, concat_axis), group
+        return _exchange(x, split_axis, concat_axis, group)
 
     @staticmethod
     def backward(ctx, grad):
         split_axis, concat_axis = ctx.axes
-        return _exchange(grad, concat_axis, split_axis), None, None
+        return _exchange(grad, concat_axis, split_axis, ctx.group), None, None, None
 
 
 def all_reduce_quantized(x: torch.Tensor, *, dtype: str = "int8") -> torch.Tensor:
@@ -343,52 +517,90 @@ def ring_perm(n: int) -> list[tuple[int, int]]:
     return [(i, (i + 1) % n) for i in range(n)]
 
 
-def sendrecv(x: torch.Tensor, perm: Sequence[tuple[int, int]], group=None) -> torch.Tensor:
-    """Each (src, dst) pair delivers src's ``x`` to dst; a rank that
-    receives nothing gets zeros (``lax.ppermute``).  Every rank of the group
-    calls it with the same ``perm``; no rank may send or receive twice."""
-    n, me = world_size(group), rank(group)
+def _permute(x: torch.Tensor, perm: Sequence[tuple[int, int]], group) -> tuple[torch.Tensor, bool]:
+    """``x`` delivered along ``perm`` (indices into the group): what this
+    rank receives, zeros if nothing, and whether it received."""
+    me = rank(group)
+    out = torch.zeros(x.shape, dtype=x.dtype, device=x.device)  # contiguous, for irecv
+    to = next((d for s, d in perm if s == me), None)
+    frm = next((s for s, d in perm if d == me), None)
+    if to == me:  # a pair (r, r) keeps its own value
+        out.copy_(x)
+        return out, True
+    if to is None and frm is None:
+        return out, False
+    pg = _pg(group)
+    staged = _host_staged(x, pg)
+    wire_in = out.cpu() if staged else out
+
+    def peer(i: int) -> int:  # P2POp takes world ranks
+        return i if group is None else group.ranks[i]
+
+    ops = []
+    if to is not None:
+        wire_out = _outgoing(x, pg)
+        ops.append(dist.P2POp(dist.isend, wire_out, peer(to), pg))
+    if frm is not None:
+        ops.append(dist.P2POp(dist.irecv, wire_in, peer(frm), pg))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if staged and frm is not None:
+        out.copy_(wire_in)
+    return out, frm is not None
+
+
+def _check_perm(perm: Sequence[tuple[int, int]], group) -> None:
+    n = world_size(group)
     for s, d in perm:
         if not (0 <= s < n and 0 <= d < n):
             raise ValueError(f"sendrecv pair ({s}, {d}) out of range for world size {n}")
     srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
     if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
         raise ValueError(f"sendrecv perm {list(perm)} sends or receives twice on one rank")
-    out = torch.zeros(x.shape, dtype=x.dtype, device=x.device)  # contiguous, for irecv
-    to = next((d for s, d in perm if s == me), None)
-    frm = next((s for s, d in perm if d == me), None)
-    if to == me:  # a pair (r, r) keeps its own value
-        out.copy_(x)
-        to = frm = None
-    staged = dist.is_initialized() and _host_staged(x, group)
-    wire_in = out.cpu() if staged else out
-
-    def peer(r: int) -> int:  # P2POp takes global ranks
-        return r if group is None else dist.get_global_rank(group, r)
-
-    ops = []
-    if to is not None:
-        wire_out = x.detach().cpu() if staged else x.detach().contiguous()
-        ops.append(dist.P2POp(dist.isend, wire_out, peer(to), group))
-    if frm is not None:
-        ops.append(dist.P2POp(dist.irecv, wire_in, peer(frm), group))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    if staged and frm is not None:
-        out.copy_(wire_in)
-    return out
 
 
-def send(x: torch.Tensor, dst: int, src: int, group=None) -> torch.Tensor:
+class _SendRecv(torch.autograd.Function):
+    """``lax.ppermute``, whose transpose sends each cotangent back along the
+    inverse permutation.  With ``keep`` a rank that receives nothing
+    outputs its input (`send`), and its own cotangent passes through."""
+
+    @staticmethod
+    def forward(ctx, x, perm, group, keep):
+        ctx.perm, ctx.group = perm, group
+        out, received = _permute(x, perm, group)
+        ctx.passes = keep and not received
+        return x.detach().clone() if ctx.passes else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        back, _ = _permute(grad, [(d, s) for s, d in ctx.perm], ctx.group)
+        return (back + grad if ctx.passes else back), None, None, None
+
+
+def sendrecv(x: torch.Tensor, perm: Sequence[tuple[int, int]],
+             group: Group | None = None) -> torch.Tensor:
+    """Each (src, dst) pair delivers src's ``x`` to dst; a rank that
+    receives nothing gets zeros (``lax.ppermute``).  Every rank of the world
+    (of ``group``, whose members the pairs index) calls it with the same
+    ``perm``; no rank may send or receive twice."""
+    _check_perm(perm, group)
+    if _tracks_grad(x):
+        return _SendRecv.apply(x, tuple(perm), group, False)
+    return _permute(x, perm, group)[0]
+
+
+def send(x: torch.Tensor, dst: int, src: int, group: Group | None = None) -> torch.Tensor:
     """One ``dist.send(x, dst)`` / ``dist.recv(x, src)`` pair as a call of
     every rank: ``dst`` gets ``src``'s value, every other rank (``src``
     included) keeps its input."""
-    received = sendrecv(x, [(src, dst)], group)
+    _check_perm([(src, dst)], group)
+    if _tracks_grad(x):
+        return _SendRecv.apply(x, ((src, dst),), group, True)
+    received, _ = _permute(x, [(src, dst)], group)
     return received if rank(group) == dst else x
 
 
-def shift(x: torch.Tensor, offset: int = 1, group=None) -> torch.Tensor:
+def shift(x: torch.Tensor, offset: int = 1, group: Group | None = None) -> torch.Tensor:
     """Ring shift: every rank sends to ``(rank + offset) % n`` and receives
     from ``(rank - offset) % n``."""
     n = world_size(group)

@@ -3,15 +3,18 @@ demos/train_lm_modes.py.
 
     python -m tpu_dist_torch.demos.train_lm_modes --mode moe
     python -m tpu_dist_torch.demos.train_lm_modes --mode dp --world 2 --device cpu
+    python -m tpu_dist_torch.demos.train_lm_modes --mode seq_ulysses --world 4 --device cpu
 
-``--mode dp`` trains the TransformerLM data-parallel and ``--mode moe``
+``--mode dp`` trains the TransformerLM data-parallel, ``--mode moe``
 expert-parallel (``LMTrainer(moe=True)``: ``moe_experts`` = the world, one
-expert per rank, capacity factor ``2 * world`` so that no token drops), at
-the JAX demo's settings: vocab 64, dim 32, depth 4, heads 4, ``max_seq =
---seq``, ``sgd(0.1)``, ``8 * --batch`` windows of the synthetic Markov
-corpus.  Every rank is a process started by `comm.spmd`, on the card by
-default (ranks share it when the world exceeds the cards) or on the CPU
-with ``--device cpu``.  Rank 0 prints each epoch's mean loss, which should
+expert per rank, capacity factor ``2 * world`` so that no token drops) and
+``--mode seq_ulysses`` sequence-parallel on the JAX demo's (2, 2) data x
+seq mesh (``LMTrainer(sequence_parallel="ulysses")``, world 4), at the JAX
+demo's settings: vocab 64, dim 32, depth 4, heads 4, ``max_seq = --seq``,
+``sgd(0.1)``, ``8 * --batch`` windows of the synthetic Markov corpus.
+Every rank is a process started by `comm.spmd`, on the card by default
+(ranks share it when the world exceeds the cards) or on the CPU with
+``--device cpu``.  Rank 0 prints each epoch's mean loss, which should
 fall.  The JAX demo's other modes are not ported yet: they exit before
 starting, naming their ROADMAP item.
 """
@@ -19,6 +22,7 @@ starting, naming their ROADMAP item.
 from __future__ import annotations
 
 import argparse
+import math
 
 import numpy as np
 import torch
@@ -26,23 +30,31 @@ import torch
 from tpu_dist_torch import comm, models
 from tpu_dist_torch.train import LMTrainConfig, LMTrainer, sgd, sgd_rule
 
-MODES = {"dp": {}, "moe": {"moe": True}}
-NOT_PORTED = ("fsdp", "zero1", "tp_psum", "tp_sp", "fsdp_tp_sp", "seq_ring", "seq_ulysses",
-              "pipe_gpipe", "pipe_1f1b")
+# mode -> (mesh shape and axes, None for the 1-D data mesh of any world;
+# LMTrainConfig overrides)
+MODES = {
+    "dp": (None, {}),
+    "moe": (None, {"moe": True}),
+    "seq_ulysses": (((2, 2), ("data", "seq")), {"sequence_parallel": "ulysses"}),
+}
+NOT_PORTED = ("fsdp", "zero1", "tp_psum", "tp_sp", "fsdp_tp_sp", "seq_ring", "pipe_gpipe",
+              "pipe_1f1b")
 
 
 def run(mode: str, epochs: int, seq: int, batch: int, device_type: str) -> torch.Tensor:
     """One rank: build, fit, and return every epoch's mean loss."""
     world = comm.world_size()
+    layout, overrides = MODES[mode]
+    mesh = None if layout is None else comm.make_mesh(*layout)
     extra = dict(moe_experts=world, moe_capacity_factor=2.0 * world) if mode == "moe" else {}
     device = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
               else torch.device("cpu"))
     lm = models.TransformerLM(vocab=64, dim=32, depth=4, heads=4, max_seq=seq, **extra,
                               generator=torch.Generator().manual_seed(0)).to(device)
     log = print if comm.rank() == 0 else (lambda line: None)
-    cfg = LMTrainConfig(epochs=epochs, global_batch=batch, log=log, **MODES[mode])
+    cfg = LMTrainConfig(epochs=epochs, global_batch=batch, log=log, **overrides)
     trainer = LMTrainer(lm, cfg, optimizer=sgd_rule(sgd(lm.parameters(), 0.1)),
-                        device=device)
+                        device=device, mesh=mesh)
     windows = np.asarray(models.synthetic_tokens(8 * batch, seq, 64))
     return torch.tensor([stats.mean_loss for stats in trainer.fit(windows)])
 
@@ -62,11 +74,15 @@ def main(argv: list[str] | None = None) -> list[float]:
     if args.mode in NOT_PORTED:
         raise SystemExit(
             f"--mode {args.mode}: not ported yet (ROADMAP queue 1, item 10, the parallel "
-            "strategies); the port runs --mode dp and --mode moe"
+            "strategies); the port runs --mode dp, --mode moe and --mode seq_ulysses"
         )
     if args.mode not in MODES:
         raise SystemExit(f"--mode must be one of {sorted([*MODES, *NOT_PORTED])}, got "
                          f"{args.mode!r}")
+    layout = MODES[args.mode][0]
+    if layout is not None and args.world != math.prod(layout[0]):
+        parser.error(f"--mode {args.mode} uses a {layout[0]} mesh ({math.prod(layout[0])} "
+                     f"ranks); pass --world {math.prod(layout[0])}")
     if args.world < (2 if args.mode == "moe" else 1):
         parser.error(f"--mode {args.mode} needs --world >= {2 if args.mode == 'moe' else 1}")
     print(f"mode={args.mode}  world={args.world}  [{args.device}]", flush=True)

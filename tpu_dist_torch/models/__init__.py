@@ -5,6 +5,7 @@ from tpu_dist_torch.models.resnet import BasicBlock, resnet18
 from tpu_dist_torch.models.transformer_lm import (
     TransformerLM,
     lm_loss,
+    lm_loss_seq_parallel,
     lm_perplexity,
     markov_table,
     synthetic_tokens,
@@ -18,6 +19,7 @@ __all__ = [
     "TransformerLM",
     "ViT",
     "lm_loss",
+    "lm_loss_seq_parallel",
     "lm_perplexity",
     "markov_table",
     "mnist_net",

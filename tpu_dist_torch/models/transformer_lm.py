@@ -22,8 +22,15 @@ block's MLP for a top-2 MoE (`models.vit.MoE`: ``moe.gate``, ``moe.up``,
 densely (every expert on every token, no capacity bound); `apply_moe_ep`
 and `loss_moe_ep` run it expert-parallel, one expert per rank, tokens
 dispatched by all_to_all (`parallel.moe_mlp_top2`), which
-``LMTrainer(moe=True)`` trains.  The tensor-, sequence- and
-pipeline-parallel forms are not ported yet (ROADMAP queue 1, item 10).
+``LMTrainer(moe=True)`` trains.
+
+Sequence parallelism: `apply_seq_parallel` runs the blocks on this rank's
+shard of the sequence with the attention core sharded over a group
+(``attention="ulysses"``, `parallel.ulysses_attention`), and
+`lm_loss_seq_parallel` is the next-token loss across the shards'
+boundaries; ``LMTrainer(sequence_parallel="ulysses")`` trains them.  The
+ring core, and the tensor- and pipeline-parallel forms, are not ported yet
+(ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpu_dist_torch import nn
-from tpu_dist_torch.comm.collectives import rank, world_size
+from tpu_dist_torch.comm.collectives import Group, rank, sendrecv, world_size
 from tpu_dist_torch.models.vit import EncoderBlock
 from tpu_dist_torch.parallel.moe import moe_mlp_top2
 
@@ -165,6 +172,39 @@ class TransformerLM(torch.nn.Module):
         ranks is the global batch's loss."""
         logits, balance = self.apply_moe_ep(tokens_local)
         return lm_loss(logits.float(), tokens_local) + self.moe_balance_weight * balance
+
+    def apply_seq_parallel(self, tokens_local: torch.Tensor, group: Group | None = None, *,
+                           flash: bool = False, attention: str = "ring") -> torch.Tensor:
+        """Sequence-parallel forward: ``tokens_local`` ``(b, s_local)`` is
+        this rank's shard of the sequence, split over ``group`` in member
+        order (the world without one); returns its ``(b, s_local, vocab)``
+        logits, those of the dense `forward` on the gathered sequence at
+        this shard's positions.  The same parameters as `forward`; only
+        attention talks to the other ranks (``attention="ulysses"``: head
+        resharding by all_to_all, the local attention routed to the flash
+        kernels by ``TPU_DIST_FLASH``).  ``flash`` selects the ring core's
+        flash blocks; the ring core is not ported yet (ROADMAP queue 1, item 10,
+        entry 1a)."""
+        from tpu_dist_torch.parallel.ring_attention import check_core, sharded_attention
+
+        check_core(attention, flash, self.sliding_window)
+        if self.kv_heads != self.heads:
+            raise ValueError(
+                "apply_seq_parallel requires kv_heads == heads (the ring attention core uses "
+                "the fused-QKV layout)"
+            )
+        n = world_size(group)
+        s_local = tokens_local.shape[1]
+        if n * s_local > self.max_seq:
+            raise ValueError(
+                f"global sequence {n} ranks x {s_local} tokens = {n * s_local} exceeds "
+                f"max_seq {self.max_seq} — the positional table would silently clamp"
+            )
+        h = self._trunk(tokens_local, pos_offset=rank(group) * s_local)
+        for blk in self.blocks:
+            h = h + sharded_attention(blk.attn, blk.ln1(h), group)
+            h = h + blk.mlp_or_moe(blk.ln2(h))
+        return self.ln(h) @ self.embed.table.T
 
     # ---- autoregressive inference (KV cache) ----------------------------
 
@@ -340,6 +380,27 @@ def lm_loss(
         return -picked.mean()
     w = mask[:, 1:].float()
     return -(picked * w).sum() / w.sum().clamp(min=1.0)
+
+
+def lm_loss_seq_parallel(logits_local: torch.Tensor, tokens_local: torch.Tensor,
+                         group: Group | None = None) -> torch.Tensor:
+    """Next-token loss over sequence shards, across their boundaries: the
+    target of a shard's last position is the right neighbour's first token,
+    which every shard sends left (one `comm.sendrecv` of ``(b, 1)`` tokens);
+    the last global position has none and is left out.  Normalised so that
+    the mean over the group's ranks is the dense `lm_loss` on the gathered
+    sequence, with a float32 log-softmax."""
+    n, r = world_size(group), rank(group)
+    b, s_local, _ = logits_local.shape
+    from_right = sendrecv(tokens_local[:, :1].contiguous(),
+                          [(i, (i - 1) % n) for i in range(n)], group)
+    targets = torch.cat([tokens_local[:, 1:], from_right], dim=1)
+    logp = F.log_softmax(logits_local.float(), dim=-1)
+    picked = logp.gather(-1, targets[..., None].long())[..., 0]
+    if r == n - 1:  # the last global position has no target
+        picked = picked[:, :-1]
+    total_positions = n * s_local - 1
+    return -picked.sum() / (b * total_positions / n)
 
 
 def markov_table(vocab: int = 256, *, seed: int = 0) -> np.ndarray:

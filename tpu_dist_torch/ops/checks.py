@@ -39,9 +39,15 @@ and by ``chip_smoke.py``:
 - `check_moe_ep`: ``LMTrainer(moe=True)`` at a world of ranks, every rank
   the same bits, optionally held to a reference's parameters, with its
   all_to_all calls, dropped fractions and launch counts, and optionally
-  one traced step (`trace_moe_step`);
+  one traced step (`trace_step`);
 - `check_moe_card_against_cpu`: a small MoE LM's step on the card against
-  the CPU, and its cached prefill against its forward.
+  the CPU, and its cached prefill against its forward;
+- `check_seq_all_to_all`: ``all_to_all`` over a mesh axis on CUDA tensors,
+  and its gradient, against the plain version;
+- `check_seq_parallel`: ``LMTrainer(sequence_parallel="ulysses")`` on a
+  (data, seq) mesh of ranks, every rank the same bits, optionally held to
+  a reference's parameters, with its all_to_all calls, launch counts and
+  peak memory, and optionally one traced step (`trace_step`).
 
 Each raises AssertionError when a check fails (also under ``python -O``)
 and returns what it measured.  Nothing here runs without a card.
@@ -219,6 +225,12 @@ def _bits_differing(a: torch.Tensor, b: torch.Tensor) -> int:
 def _digest(t: torch.Tensor) -> str:
     """A digest of ``t``'s bits, to compare ranks' outputs."""
     return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def _digests_agree(digests: dict, world: int) -> None:
+    differing = [k for k, d in digests.items() if d != [d[0]] * world]
+    _require(not differing, f"parameters whose bits differ between ranks: {differing[:5]} "
+             f"({len(differing)} of {len(digests)})")
 
 
 def _ring_rank(seed: int, time_mib: float, iters: int) -> dict:
@@ -926,11 +938,16 @@ MOE_WIDTH = dict(vocab=32768, dim=768, heads=12, max_seq=1024, pos_embedding="ro
 MOE_EP_TOL = dict(rtol=2e-3, atol=2e-4)  # the JAX package's tests/test_lm_mode_matrix.py
 
 
-class _MoEInstruments:
+class _AllToAllInstruments:
     """While active, this process's all_to_all calls (`dist.all_to_all_single`)
     are counted, the forward's (on the main thread) apart from the
     backward's (on autograd's device thread, the tensors being on the
-    card), and the dropped fraction of every expert-parallel MoE layer
+    card), with their host seconds: ``seconds`` inside the backend's call
+    (under Gloo the exchange of host buffers, the wait for the slowest rank
+    included; under NCCL the enqueue alone) and ``call_seconds`` inside
+    `comm.all_to_all`'s whole exchange (under Gloo also the copy to the
+    host, which first waits for the work queued on the card, and the copy
+    back).  The dropped fraction of every expert-parallel MoE layer
     (`moe_mlp_top2`'s stats) is kept."""
 
     def __enter__(self):
@@ -938,28 +955,42 @@ class _MoEInstruments:
 
         import torch.distributed as dist
 
+        from tpu_dist_torch.comm import collectives
         from tpu_dist_torch.models import transformer_lm
 
         self.calls = {"forward": 0, "backward": 0}
+        self.seconds = {"forward": 0.0, "backward": 0.0}
+        self.call_seconds = {"forward": 0.0, "backward": 0.0}
         self.dropped = []
-        self._dist, self._lm = dist, transformer_lm
+        self._dist, self._lm, self._collectives = dist, transformer_lm, collectives
         self._a2a, self._top2 = dist.all_to_all_single, transformer_lm.moe_mlp_top2
+        self._exchange = collectives._exchange
 
-        def a2a(*args, **kw):
-            main = threading.current_thread() is threading.main_thread()
-            self.calls["forward" if main else "backward"] += 1
-            return self._a2a(*args, **kw)
+        def timed(fn, seconds, count):
+            def call(*args, **kw):
+                main = threading.current_thread() is threading.main_thread()
+                way = "forward" if main else "backward"
+                self.calls[way] += count
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    seconds[way] += time.perf_counter() - t0
+            return call
 
         def top2(*args, **kw):
             y, stats = self._top2(*args, **kw)
             self.dropped.append(stats["dropped_fraction"].detach())
             return y, stats
 
-        dist.all_to_all_single, transformer_lm.moe_mlp_top2 = a2a, top2
+        dist.all_to_all_single = timed(self._a2a, self.seconds, 1)
+        collectives._exchange = timed(self._exchange, self.call_seconds, 0)
+        transformer_lm.moe_mlp_top2 = top2
         return self
 
     def __exit__(self, *exc):
         self._dist.all_to_all_single, self._lm.moe_mlp_top2 = self._a2a, self._top2
+        self._collectives._exchange = self._exchange
 
 
 def _launches() -> dict:
@@ -976,14 +1007,16 @@ def _zero_launches() -> None:
         k.launches = 0
 
 
-def trace_moe_step(step) -> dict:
+def trace_step(step) -> dict:
     """Two ``step()`` calls under ``torch.profiler``, the first as its
     warm-up (the profiler's start-up differs between ranks, and a rank
     that starts first would wait for the others inside its collectives),
     the second traced after a barrier with the group: this rank's device
     ms, its all_to_all kernels' ms (NCCL's send/receive or all-to-all
-    kernels), its all-reduce kernels' ms, and the step's wall ms to the end
-    of its device work."""
+    kernels), its all-reduce kernels' ms, the step's wall ms to the end of
+    its device work, and the host ms inside all_to_all calls
+    (`_AllToAllInstruments`: under Gloo, where no kernel moves the data,
+    the exchange itself, and the whole calls with their copies)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -993,10 +1026,11 @@ def trace_moe_step(step) -> dict:
         torch.cuda.synchronize()
         comm.barrier()
         prof.step()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with _AllToAllInstruments() as seen:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         prof.step()
     comm.barrier()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -1007,23 +1041,29 @@ def trace_moe_step(step) -> dict:
                    if any(t in e.key.lower() for t in tags)) / 1e3
 
     a2a_ms = of("sendrecv", "alltoall")
+    host_ms = sum(seen.seconds.values()) * 1e3
+    call_ms = sum(seen.call_seconds.values()) * 1e3
     return {"device_ms": device_us / 1e3, "all_to_all_ms": a2a_ms,
             "all_reduce_ms": of("allreduce"), "wall_ms": wall * 1e3,
             "all_to_all_share_of_device": a2a_ms * 1e3 / device_us if device_us else None,
-            "all_to_all_share_of_wall": a2a_ms / (wall * 1e3)}
+            "all_to_all_share_of_wall": a2a_ms / (wall * 1e3),
+            "all_to_all_host_ms": host_ms, "all_to_all_host_share_of_wall": host_ms / (wall * 1e3),
+            "all_to_all_call_ms": call_ms, "all_to_all_call_share_of_wall": call_ms / (wall * 1e3)}
 
 
-def _moe_fit_rank(lm_kw: dict, cfg_kw: dict, windows, lr: float | None,
-                  reference: str | None, trace: bool) -> dict:
-    """One rank of `check_moe_ep`: ``LMTrainer(moe=True)`` of a MoE LM built
-    from seed 0 (``sgd(lr)``, or AdamW when ``lr`` is None), fit on
-    ``windows`` under TPU_DIST_FLASH=1 without TF32.  Returns its losses,
-    seconds and tokens/s an epoch, its all_to_all calls (forward and
+def _fit_rank(mode: dict, mesh_shape: tuple | None, lm_kw: dict, cfg_kw: dict, windows,
+              lr: float | None, reference: str | None, trace: bool) -> dict:
+    """One rank of `check_moe_ep` and `check_seq_parallel`: ``LMTrainer``
+    in ``mode`` (``moe=True``, or ``sequence_parallel="ulysses"`` on a
+    (data, seq) mesh of ``mesh_shape``), the LM built from seed 0
+    (``sgd(lr)``, or AdamW when ``lr`` is None), fit on ``windows`` under
+    TPU_DIST_FLASH=1 without TF32.  Returns its losses, seconds and
+    tokens/s an epoch, its all_to_all calls and host seconds (forward and
     backward) and launch counts (set to 0 just before the fit, read just
-    after), the largest and the mean dropped fraction of its MoE layers'
-    calls, a digest of every parameter, and given ``reference`` (a file of
-    parameters) each parameter's largest difference from it; with
-    ``trace``, `trace_moe_step` of two more steps."""
+    after), its peak device memory, a digest of every parameter, with MoE
+    layers the largest and the mean dropped fraction of their calls, and
+    given ``reference`` (a file of parameters) each parameter's largest
+    difference from it; with ``trace``, `trace_step` of two more steps."""
     import os
 
     from tpu_dist_torch import models
@@ -1033,23 +1073,28 @@ def _moe_fit_rank(lm_kw: dict, cfg_kw: dict, windows, lr: float | None,
     os.environ["TPU_DIST_FLASH"] = "1"
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", torch.cuda.current_device())
+    mesh = None if mesh_shape is None else comm.make_mesh(mesh_shape, ("data", "seq"))
     lm = models.TransformerLM(**lm_kw, generator=torch.Generator().manual_seed(0)).to(device)
     opt = None if lr is None else sgd_rule(sgd(lm.parameters(), lr))
-    trainer = LMTrainer(lm, LMTrainConfig(**cfg_kw, moe=True, log=lambda line: None),
-                        optimizer=opt, device=device)
+    trainer = LMTrainer(lm, LMTrainConfig(**cfg_kw, **mode, log=lambda line: None),
+                        optimizer=opt, device=device, mesh=mesh)
     torch.cuda.synchronize()
     comm.barrier()
     _zero_launches()
-    with _MoEInstruments() as seen:
+    torch.cuda.reset_peak_memory_stats(device)
+    with _AllToAllInstruments() as seen:
         history = trainer.fit(windows)
     launches = _launches()
     out = {"losses": torch.tensor([s.mean_loss for s in history], dtype=torch.float64),
            "seconds": torch.tensor([s.seconds for s in history]),
            "tokens_per_sec": torch.tensor([s.tokens_per_sec for s in history]),
-           "all_to_all_calls": seen.calls, "launches": launches,
-           "dropped": float(torch.stack(seen.dropped).max()),
-           "dropped_mean": float(torch.stack(seen.dropped).mean()),
+           "all_to_all_calls": seen.calls, "all_to_all_seconds": seen.seconds,
+           "all_to_all_call_seconds": seen.call_seconds, "launches": launches,
+           "peak_bytes": torch.cuda.max_memory_allocated(device),
            "digests": {k: _digest(p.detach()) for k, p in lm.named_parameters()}}
+    if seen.dropped:
+        out["dropped"] = float(torch.stack(seen.dropped).max())
+        out["dropped_mean"] = float(torch.stack(seen.dropped).mean())
     if reference is not None:
         want = torch.load(reference)
         diffs, close = {}, True
@@ -1059,28 +1104,24 @@ def _moe_fit_rank(lm_kw: dict, cfg_kw: dict, windows, lr: float | None,
             close = close and torch.allclose(got, want[k], **MOE_EP_TOL)
         out["max_param_diff"], out["params_close"] = max(diffs.values()), close
     if trace:
-        local = cfg_kw["global_batch"] // comm.world_size()
-        rows = windows[comm.rank() * local : (comm.rank() + 1) * local]
-        tokens = to_device(rows, device)
-        out["trace"] = trace_moe_step(lambda: trainer.train_step(tokens))
+        rows, cols = trainer._batch_slices(cfg_kw["global_batch"], windows.shape[1])
+        tokens = to_device(windows[rows, cols], device)
+        out["trace"] = trace_step(lambda: trainer.train_step(tokens))
     return out
 
 
-def check_moe_ep(world: int, lm_kw: dict, cfg_kw: dict, windows, *, lr: float | None = None,
-                 reference: str | None = None, trace: bool = False) -> dict:
-    """``LMTrainer(moe=True)`` at ``world`` ranks on the card (ranks sharing
-    one card over Gloo, or one card each over NCCL): every rank must end
-    with the same bits in every parameter, the same losses, finite and
-    no token dropped when the capacity suffices (reported); with
+def _check_fit(world: int, mode: dict, mesh_shape: tuple | None, lm_kw: dict, cfg_kw: dict,
+               windows, lr: float | None, reference: str | None, trace: bool) -> dict:
+    """`_fit_rank` at ``world`` ranks on the card (ranks sharing one card
+    over Gloo, or one card each over NCCL): every rank must end with the
+    same bits in every parameter and the same finite losses; with
     ``reference``, the parameters within `MOE_EP_TOL` of it.  Returns rank
-    0's numbers and every rank's all_to_all calls and launches."""
-    res = comm.spmd(_moe_fit_rank, lm_kw, cfg_kw, windows, lr, reference, trace,
+    0's numbers and every rank's all_to_all calls and seconds, launches,
+    peak memory and dropped fractions."""
+    res = comm.spmd(_fit_rank, mode, mesh_shape, lm_kw, cfg_kw, windows, lr, reference, trace,
                     world=world, device="cuda", timeout=900)
-    calls = res["all_to_all_calls"]
     digests = res["digests"]
-    differing = [k for k, d in digests.items() if d != [d[0]] * world]
-    _require(not differing, f"parameters whose bits differ between ranks: {differing[:5]} "
-             f"({len(differing)} of {len(digests)})")
+    _digests_agree(digests, world)
     losses = res["losses"]
     _require(all(torch.equal(losses[q], losses[0]) for q in range(world)),
              f"ranks report different losses {losses.tolist()}")
@@ -1091,17 +1132,72 @@ def check_moe_ep(world: int, lm_kw: dict, cfg_kw: dict, windows, *, lr: float | 
     out = {"world": world, "losses": losses[0].tolist(),
            "seconds": res["seconds"][0].tolist(),
            "tokens_per_sec": res["tokens_per_sec"][0].tolist(),
-           "all_to_all_calls": {k: v.tolist() for k, v in calls.items()},
-           "dropped": res["dropped"].tolist(),
-           "dropped_mean": res["dropped_mean"].tolist(),
-           "launches": {k: v.tolist() for k, v in res["launches"].items()},
+           **{key: {k: v.tolist() for k, v in res[key].items()}
+              for key in ("all_to_all_calls", "all_to_all_seconds", "all_to_all_call_seconds",
+                          "launches")},
+           "peak_gb": [b / 1e9 for b in res["peak_bytes"].tolist()],
            "parameters": len(digests)}
-    if reference is not None:
-        out["max_param_diff"] = res["max_param_diff"].tolist()
+    for key in ("dropped", "dropped_mean", "max_param_diff"):
+        if key in res:
+            out[key] = res[key].tolist()
     if trace:
         out["trace"] = {k: v.tolist() if isinstance(v, torch.Tensor) else v
                         for k, v in res["trace"].items()}
     return out
+
+
+def check_moe_ep(world: int, lm_kw: dict, cfg_kw: dict, windows, *, lr: float | None = None,
+                 reference: str | None = None, trace: bool = False) -> dict:
+    """``LMTrainer(moe=True)`` at ``world`` ranks on the card (`_check_fit`),
+    with the dropped fractions of its MoE layers' calls (none when the
+    capacity suffices)."""
+    return _check_fit(world, {"moe": True}, None, lm_kw, cfg_kw, windows, lr, reference, trace)
+
+
+# ------------------------------------------------------ sequence parallelism
+
+
+def _seq_all_to_all_rank(shape: tuple, seed: int) -> dict:
+    """One rank of `check_seq_all_to_all`: its CUDA tensor through
+    ``all_to_all`` over the seq group of a (2, 2) mesh, and the gradient of
+    a weighted sum."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = comm.make_mesh((2, 2), ("data", "seq"))
+    g = torch.Generator().manual_seed(seed + comm.rank())
+    x = torch.randn(shape, generator=g).to(device).requires_grad_()
+    y = comm.all_to_all(x, split_axis=1, concat_axis=0, group=mesh.group("seq"))
+    w = torch.randn(y.shape, generator=g).to(device)
+    (w * y).sum().backward()
+    return {"x": x.detach().cpu(), "w": w.cpu(), "y": y.detach().cpu(), "grad": x.grad.cpu(),
+            "on_card": y.is_cuda and x.grad.is_cuda}
+
+
+def check_seq_all_to_all(shape: tuple = (3, 4), seed: int = 0) -> dict:
+    """``comm.all_to_all(split_axis=1, concat_axis=0)`` over the seq group of
+    a (2, 2) mesh, four ranks on the card's CUDA tensors (Gloo, staged
+    through host memory), against its plain version on the stacked inputs:
+    the output exactly, and the gradient of ``sum(w * y)`` (the exchange
+    with the axes swapped) exactly.  Returns the ranks' outputs."""
+    res = comm.spmd(_seq_all_to_all_rank, shape, seed, world=4, device="cuda", timeout=300)
+    _require(bool(res["on_card"].all()), "all_to_all left the card")
+    xs, ws = res["x"], res["w"]
+    for r in range(4):
+        row = [2 * (r // 2) + j for j in range(2)]  # the seq group of rank r
+        me = r % 2
+        want_y = torch.cat([xs[j].chunk(2, dim=1)[me] for j in row], dim=0)
+        want_g = torch.cat([ws[j].chunk(2, dim=0)[me] for j in row], dim=1)
+        _require(torch.equal(res["y"][r], want_y), f"rank {r}: all_to_all output differs")
+        _require(torch.equal(res["grad"][r], want_g), f"rank {r}: all_to_all gradient differs")
+    return {"y": res["y"], "grad": res["grad"]}
+
+
+def check_seq_parallel(world: int, mesh_shape: tuple, lm_kw: dict, cfg_kw: dict, windows, *,
+                       lr: float | None = None, reference: str | None = None,
+                       trace: bool = False) -> dict:
+    """``LMTrainer(sequence_parallel="ulysses")`` at ``world`` ranks on a
+    (data, seq) mesh of ``mesh_shape`` on the card (`_check_fit`)."""
+    return _check_fit(world, {"sequence_parallel": "ulysses"}, mesh_shape, lm_kw, cfg_kw,
+                      windows, lr, reference, trace)
 
 
 MOE_SMALL = dict(vocab=512, dim=128, depth=2, heads=2, max_seq=256, pos_embedding="rope",

@@ -53,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_dist_torch.comm import init as _init
+from tpu_dist_torch.comm.collectives import Group
 from tpu_dist_torch.ops import _build
 from tpu_dist_torch.parallel.ring import ring_all_reduce_chunked
 
@@ -420,8 +421,9 @@ def synchronize() -> None:
         ws.check()
 
 
-def ring_all_reduce_pallas(x: torch.Tensor, group=None) -> torch.Tensor:
-    """The ring all-reduce of ``x`` over ``group`` (every rank calls it
+def ring_all_reduce_pallas(x: torch.Tensor, group: Group | None = None) -> torch.Tensor:
+    """The ring all-reduce of ``x`` over ``group`` (a `comm.Group`, or the
+    world; every rank of it calls it
     with the same shape and dtype: float32, bfloat16, float16 or int32).
     `TIMEOUT_S` bounds each wait of the kernel for a neighbour; it must
     exceed how far the ranks' streams may drift apart before the call.
@@ -435,7 +437,8 @@ def ring_all_reduce_pallas(x: torch.Tensor, group=None) -> torch.Tensor:
     return _launch(x, group, None)
 
 
-def ring_all_reduce_traced(x: torch.Tensor, phases: torch.Tensor, group=None) -> torch.Tensor:
+def ring_all_reduce_traced(x: torch.Tensor, phases: torch.Tensor,
+                           group: Group | None = None) -> torch.Tensor:
     """`ring_all_reduce_pallas` of a CUDA tensor through the kernel's
     traced instantiation: ``phases``, a contiguous int64 tensor of 3 x
     `BLOCKS` on ``x``'s card, receives each block's nanoseconds spent
@@ -448,7 +451,7 @@ def ring_all_reduce_traced(x: torch.Tensor, phases: torch.Tensor, group=None) ->
     return _launch(x, group, phases)
 
 
-def _launch(x: torch.Tensor, group, phases: torch.Tensor | None) -> torch.Tensor:
+def _launch(x: torch.Tensor, group: Group | None, phases: torch.Tensor | None) -> torch.Tensor:
     """One launch of the kernel on ``x``, counted."""
     if not x.is_cuda:
         raise ValueError(f"ring_all_reduce_pallas runs on cuda or cpu tensors, not {x.device}")
@@ -459,7 +462,7 @@ def _launch(x: torch.Tensor, group, phases: torch.Tensor | None) -> torch.Tensor
         raise RuntimeError("ring_all_reduce_pallas on a CUDA tensor needs a process group "
                            "(comm.spmd or comm.init_process_group): the kernel exchanges "
                            "its workspace handles over it")
-    ws = workspace(x.device, group)
+    ws = workspace(x.device, None if group is None else group.pg)
     stamp = ws.prepare(x)
     flat = x.detach().reshape(-1)
     if flat.data_ptr() % 16:

@@ -1,7 +1,8 @@
-"""LMTrainer: data-parallel and expert-parallel training of the
-TransformerLM over token windows.
+"""LMTrainer: data-parallel, expert-parallel and sequence-parallel training
+of the TransformerLM over token windows.
 
-The port of `tpu_dist.train.LMTrainer` on its data-parallel and MoE paths:
+The port of `tpu_dist.train.LMTrainer` on its data-parallel, MoE and
+Ulysses paths:
 per step the dense next-token loss on the global batch (each rank its slice, over
 ``accum_steps`` microbatches), the gradients averaged over ranks with one
 all-reduce that also carries the loss, and AdamW (optionally under
@@ -28,13 +29,22 @@ It composes with ``accum_steps``, ``compute_dtype``, ``grad_clip``,
 ``nan_guard`` and ``loss_scale``, as in the JAX package.  Without ``moe``
 a model with experts trains data-parallel on its dense MoE evaluation.
 
+``sequence_parallel="ulysses"`` trains over a ``(data, seq)`` mesh
+(`comm.make_mesh`): rank ``(d, s)`` takes rows ``d`` of the global batch
+and columns ``s`` of the window (the JAX step's ``P(data, seq)`` batch
+spec), the loss is `lm_loss_seq_parallel` on
+`TransformerLM.apply_seq_parallel`'s logits over the ``seq`` group, and
+the gradients and the loss go through the same mean over every rank: the
+JAX step's pmean over ``data`` and over ``seq`` (``extra_grad_axes``), the
+parameters being replicated.  It composes with everything ``moe`` does.
+
 Checkpoints hold ``{"params", "opt_state"}`` in the JAX package's layout
 (`interop`), so either package's `LMTrainer.restore` reads the other's.
 
-Not ported yet (ROADMAP queue 1): the fsdp, zero1, tensor, sequence and
-pipeline modes, compressed gradients, partition rules (item 10; the
-tensor, sequence and pipeline fields exist and refuse), in-flight steps
-and telemetry (item 11), ``generate`` (item 9).
+Not ported yet (ROADMAP queue 1): the fsdp, zero1, tensor and pipeline
+modes and the ring sequence-parallel core, compressed gradients, partition
+rules (item 10; the tensor and pipeline fields exist and refuse), in-flight
+steps and telemetry (item 11), ``generate`` (item 9).
 """
 
 from __future__ import annotations
@@ -48,9 +58,10 @@ import torch
 import torch.distributed as dist
 from torch.func import functional_call
 
+from tpu_dist_torch.comm.mesh import DATA_AXIS, Mesh, world_mesh
 from tpu_dist_torch.data.loader import HostLoader
 from tpu_dist_torch.device import resolve_device
-from tpu_dist_torch.models.transformer_lm import lm_loss, lm_perplexity
+from tpu_dist_torch.models.transformer_lm import lm_loss, lm_loss_seq_parallel, lm_perplexity
 from tpu_dist_torch.parallel.data_parallel import (
     accumulate_gradients,
     average_gradients,
@@ -79,10 +90,14 @@ class LMTrainConfig:
     # Expert-parallel MoE: lm.moe_experts == world size, one expert per
     # rank (TransformerLM.loss_moe_ep).
     moe: bool = False
+    # Sequence-parallel training over the mesh's seq_axis: "ulysses"
+    # (all-to-all head resharding); "ring" is not ported yet.  seq_axis
+    # names the mesh axis, as the JAX package's config field does.
+    sequence_parallel: str | None = None
+    seq_axis: str = "seq"
     # The JAX package's other model-parallel modes, not ported yet: set,
     # they refuse.
     tensor_parallel: str | None = None
-    sequence_parallel: str | None = None
     pipeline: str | None = None
     log: Callable[[str], None] = print
 
@@ -98,9 +113,10 @@ class LMEpochStats:
     bad_steps: int | None = None
 
 
-def _check_modes(config: LMTrainConfig, lm: torch.nn.Module, world: int) -> None:
+def _check_modes(config: LMTrainConfig, lm: torch.nn.Module, mesh: Mesh) -> None:
     """The JAX LMTrainer's exclusion of its model-parallel modes, then the
-    modes the port lacks, then ``moe``'s expert count."""
+    modes the port lacks, then each mode's mesh and ``moe``'s expert
+    count."""
     modes = {"tensor_parallel": config.tensor_parallel,
              "sequence_parallel": config.sequence_parallel, "pipeline": config.pipeline}
     if sum(v is not None for v in modes.values()) + bool(config.moe) > 1:
@@ -108,43 +124,76 @@ def _check_modes(config: LMTrainConfig, lm: torch.nn.Module, world: int) -> None
             "tensor_parallel, sequence_parallel, pipeline, and moe are mutually exclusive "
             "trainer modes"
         )
-    unported = [name for name, value in modes.items() if value is not None]
+    unported = [name for name in ("tensor_parallel", "pipeline") if modes[name] is not None]
     if unported:
         raise NotImplementedError(
             f"LMTrainer {unported[0]}: not ported yet (ROADMAP queue 1, item 10, the "
-            "parallel strategies); the port trains data-parallel, or moe=True"
+            "parallel strategies); the port trains data-parallel, moe=True or "
+            "sequence_parallel='ulysses'"
         )
+    sp = config.sequence_parallel
+    if sp is not None:
+        if sp not in ("ring", "ulysses"):
+            raise ValueError(f"sequence_parallel must be 'ring' or 'ulysses', got {sp!r}")
+        if sp == "ring":
+            raise NotImplementedError(
+                "LMTrainer sequence_parallel='ring': not ported yet (ROADMAP queue 1, item "
+                "10, entry 1a: ring attention); use 'ulysses'"
+            )
+        if config.seq_axis not in mesh.shape:
+            raise ValueError(
+                f"sequence_parallel needs a {config.seq_axis!r} mesh axis; mesh has "
+                f"{mesh.axis_names}"
+            )
+        if set(mesh.axis_names) - {DATA_AXIS, config.seq_axis}:
+            raise ValueError(f"sequence_parallel runs on a ({DATA_AXIS!r}, "
+                             f"{config.seq_axis!r}) mesh; mesh has {mesh.axis_names}")
+    elif mesh.axis_names != (DATA_AXIS,):
+        raise ValueError(f"without sequence_parallel the mesh is the 1-D {DATA_AXIS!r} mesh "
+                         f"(comm.world_mesh()); mesh has {mesh.axis_names}")
     experts = getattr(lm, "moe_experts", 0)
-    if config.moe and experts != world:
+    data = mesh.shape.get(DATA_AXIS, 1)
+    if config.moe and experts != data:
         raise ValueError(
-            f"moe mode needs lm.moe_experts == data-axis size ({world}), got {experts}"
+            f"moe mode needs lm.moe_experts == data-axis size ({data}), got {experts}"
         )
 
 
 class _StepLoss(torch.nn.Module):
     """The loss of this rank's tokens as a module over the LM, so that
     `functional_call` runs it on the cast parameters: the dense next-token
-    loss, or with ``moe`` `TransformerLM.loss_moe_ep`."""
+    loss, with ``moe`` `TransformerLM.loss_moe_ep`, or with
+    ``sequence_parallel`` the boundary-correct loss of this rank's
+    sequence shard over ``seq_group``."""
 
-    def __init__(self, lm: torch.nn.Module, moe: bool):
+    def __init__(self, lm: torch.nn.Module, moe: bool, sequence_parallel: str | None,
+                 seq_group):
         super().__init__()
         self.lm, self.moe = lm, moe
+        self.sequence_parallel, self.seq_group = sequence_parallel, seq_group
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         if self.moe:
             return self.lm.loss_moe_ep(tokens)
+        if self.sequence_parallel is not None:
+            logits = self.lm.apply_seq_parallel(tokens, self.seq_group,
+                                                attention=self.sequence_parallel)
+            return lm_loss_seq_parallel(logits.float(), tokens, self.seq_group)
         return lm_loss(self.lm(tokens).float(), tokens)
 
 
 class LMTrainer:
-    """Data-parallel (or, with ``moe``, expert-parallel) LM training over
-    ``(N, S)`` token windows.
+    """Data-parallel (with ``moe`` expert-parallel, with
+    ``sequence_parallel`` sequence-parallel) LM training over ``(N, S)``
+    token windows.
 
-    The model arrives initialized; the trainer moves it to ``device``, in a
-    process group overwrites every rank's parameters and buffers with rank
-    0's (the replicas start equal however each rank built the model), and
-    keeps its float32 parameters as the masters the optimizer updates in
-    place."""
+    ``mesh``: the world's ranks as a `comm.Mesh`; the default is the 1-D
+    ``data`` mesh of the world (`comm.world_mesh`), a sequence-parallel
+    run a ``(data, seq)`` one.  The model arrives initialized; the trainer
+    moves it to ``device``, in a process group overwrites every rank's
+    parameters and buffers with rank 0's (the replicas start equal however
+    each rank built the model), and keeps its float32 parameters as the
+    masters the optimizer updates in place."""
 
     def __init__(
         self,
@@ -153,6 +202,7 @@ class LMTrainer:
         *,
         optimizer: Optimizer | None = None,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ):
         self.device = resolve_device(device)
         self.config = config or LMTrainConfig()
@@ -164,9 +214,12 @@ class LMTrainer:
             self.rank, self.world = dist.get_rank(), dist.get_world_size()
         else:
             self.rank, self.world = 0, 1
-        _check_modes(self.config, lm, self.world)
+        self.mesh = world_mesh() if mesh is None else mesh
+        _check_modes(self.config, lm, self.mesh)
         self.lm = lm.to(self.device)
-        self._step_loss = _StepLoss(self.lm, self.config.moe)
+        sp = self.config.sequence_parallel
+        self._step_loss = _StepLoss(self.lm, self.config.moe, sp,
+                                    None if sp is None else self.mesh.group(self.config.seq_axis))
         if self.distributed:
             broadcast_parameters(self.lm)
         self.params = dict(self.lm.named_parameters())
@@ -235,6 +288,25 @@ class LMTrainer:
         restore_leaves(live, loaded)
         return epoch
 
+    def _batch_slices(self, gb: int, s: int) -> tuple[slice, slice]:
+        """This rank's rows of a global batch of ``gb`` windows of ``s``
+        tokens and its columns: rows ``d`` of the data axis, columns ``s``
+        of the sequence axis (all of them without one)."""
+        n_data = self.mesh.shape.get(DATA_AXIS, 1)
+        if gb % n_data:
+            raise ValueError(f"global batch {gb} does not split over {n_data} ranks")
+        local = gb // n_data
+        d = self.mesh.index(DATA_AXIS) if DATA_AXIS in self.mesh.shape else 0
+        rows = slice(d * local, (d + 1) * local)
+        if self.config.sequence_parallel is None:
+            return rows, slice(None)
+        n_seq = self.mesh.shape[self.config.seq_axis]
+        if s % n_seq:
+            raise ValueError(f"window of {s} tokens does not split over {n_seq} sequence ranks")
+        s_local = s // n_seq
+        c = self.mesh.index(self.config.seq_axis)
+        return rows, slice(c * s_local, (c + 1) * s_local)
+
     def fit(
         self,
         windows,
@@ -255,19 +327,16 @@ class LMTrainer:
             raise ValueError(
                 f"{n} windows < global batch {gb} — shrink the batch or use more data"
             )
-        if gb % self.world:
-            raise ValueError(f"global batch {gb} does not split over {self.world} ranks")
-        local = gb // self.world
+        rows, cols = self._batch_slices(gb, s)
         steps_per_epoch = n // gb
         history = []
         with checkpoint.AsyncCheckpointer() as writer, PreemptionGuard() as preempt:
             for epoch in range(start_epoch, epochs if epochs is not None else cfg.epochs):
                 order = np.random.default_rng(cfg.seed + epoch).permutation(n)
-                rows = slice(self.rank * local, (self.rank + 1) * local)
 
                 def host_batches(order=order):
                     for b in range(steps_per_epoch):
-                        yield windows[order[b * gb : (b + 1) * gb][rows]]
+                        yield windows[order[b * gb : (b + 1) * gb][rows], cols]
 
                 t0 = time.perf_counter()
                 total = torch.zeros((), dtype=torch.float64, device=self.device)
