@@ -176,10 +176,37 @@ the exit code is nonzero:
           block a step on each rank and no other, tokens/s, peak memory,
           the host seconds inside all_to_all and a traced step; the phase's
           seconds.
+[seq-ring] the ring core on the [seq] model.  The tensor-core flash
+          kernels against their plain versions at one block of the flash
+          ring at world 2 (q, k, v (2, 12, 2048, 64) bfloat16), causal (the
+          diagonal block) and non-causal (the others), timed as in [flash].
+          Then, in one ``comm.spmd`` world of 2 ranks on this card
+          (`ops.checks.check_seq_ring`): ``ring_attention_flash`` against
+          ``ring_attention`` and both against dense attention on the
+          gathered sequence (q, k, v (2, 12, 4096, 64) causal, bfloat16 and
+          float32; `checks.RING_ATTENTION_TOL`), the flash ring's gradient
+          the dense ring's bits, 1 causal + 1 non-causal forward launch a
+          call a rank and no backward kernel; ``apply_seq_parallel(
+          attention="ring", flash=True)`` of the full-depth LM in eval (1 x
+          4096, float32 and bfloat16) against ``flash=False`` and the dense
+          forward at world 1 (`SEQ_RING_EVAL_TOL`), 2 forward launches a
+          block a rank; greedy ``generate_seq_parallel`` (float32, a prompt
+          of 2 x 1984 tokens, 128 steps) against dense ``generate`` on the
+          gathered prompt (a differing token only where dense's top-2
+          margin is a tie, `SERVE_TIE`).  Then ``LMTrainer(
+          sequence_parallel="ring")`` at world 2 as [seq] runs Ulysses:
+          depth 2 float32 against the dense LMTrainer, then depth 12,
+          bfloat16, AdamW at `SEQ_RING_LR`, 2 x 4 steps of 4 x 4096 in two
+          microbatches against the dense LMTrainer in the same microbatches
+          (`SEQ_BF16_RTOL`); 2 sendrecv calls a block a microbatch each way
+          (and one of tokens forward), no flash kernel; tokens/s, peak
+          memory, the host seconds inside sendrecv and a traced step; each
+          part's and the phase's seconds.
 
 Then one JSON line per kernel (with its launches in each [image] run, on
-[moe] and [seq], its ``vit`` row of [flash] and its ``seq_ulysses`` row
-of [seq]), the card's name and power limit, and the result line.  Without
+[moe], [seq] and [seq-ring], its ``vit`` row of [flash], its
+``seq_ulysses`` row of [seq] and its ``seq_ring`` rows of [seq-ring]), the
+card's name and power limit, and the result line.  Without
 a CUDA device it exits nonzero before printing any result.
 
     python3 chip_smoke.py --lm-f32
@@ -191,7 +218,7 @@ result line.
     python3 chip_smoke.py --nccl
 
 needs four cards: it runs only [env], the build, [collectives], [dp],
-[image-dp], [moe-ep] and [seq-ulysses], where each rank now has a card of
+[image-dp], [moe-ep], [seq-ulysses] and [seq-ring], where each rank now has a card of
 its own, so the collectives take NCCL on the card and [dp]'s ring kernel
 crosses NVLink;
 [image-dp] (`ops.checks.check_image_dp`) trains ResNet-18 at world 4 under
@@ -205,7 +232,8 @@ trains the [seq] LM sequence-parallel at world 4 on a (2, 2) data x seq
 mesh: at depth 2 in float32 against the dense LM at world 1 (as [seq]),
 then at full depth (bfloat16, AdamW, 2 x 4 steps of 8 x 4096) against
 the dense LM at world 1 in bfloat16 (as [seq]): losses falling, every
-parameter the same bits on every rank, tokens/s and a traced step; no
+parameter the same bits on every rank, tokens/s and a traced step;
+[seq-ring] trains the same two runs with ``sequence_parallel="ring"``; no
 result line.
 
     python3 chip_smoke.py --resume
@@ -228,7 +256,14 @@ runs only [env], the build and [moe]; no result line.
 
     python3 chip_smoke.py --seq
 
-runs only [env], the build and [seq]; no result line.
+runs only [env], the build, [seq] and [seq-ring]; no result line.
+
+    python3 chip_smoke.py --seq-ring-margin
+
+runs only [env], the build and [seq-ring]'s bf16 fit at world 2 again, on
+the windows of each of `SEQ_RING_MARGIN_SEEDS` (the whole run's are seed
+0), each against its dense run and `SEQ_BF16_RTOL`, to show the gate's
+margin; no result line.
 
     python3 chip_smoke.py --main
 
@@ -2009,20 +2044,38 @@ SEQ_NCCL = (8, 4)  # [seq-ulysses] (--nccl), world 4 on a (2, 2) mesh: the same
 
 
 def seq_a2a_share(run: dict, key: str) -> float:
-    """Rank 0's host seconds inside all_to_all (``key``: the backend's call,
-    or the whole call with its copies) over its fit's seconds."""
+    """Rank 0's host seconds inside a collective (``key``: all_to_all's
+    backend call, or its whole call with its copies; sendrecv's whole
+    exchange) over its fit's seconds."""
     a2a = run[key]
     return (a2a["forward"][0] + a2a["backward"][0]) / sum(run["seconds"])
 
 
-def seq_float32(device, checks, card: str, world: int, mesh: tuple, phase: str) -> dict:
+def seq_comm_gates(run: dict, core: str, world: int, mesh: tuple, depth: int, steps: int,
+                   phase: str) -> None:
+    """The collectives a sequence-parallel fit must make on every rank:
+    Ulysses 4 all_to_all calls a block a step each way; the ring none, and
+    2 (n - 1) sendrecv calls a block a step each way (n the seq axis's
+    size) and one more forward, the loss's tokens."""
+    ring = 2 * (mesh[1] - 1) * depth * steps if core == "ring" else None
+    a2a = {way: [0 if ring else 4 * depth * steps] * world for way in ("forward", "backward")}
+    check(run["all_to_all_calls"] == a2a, f"{phase} all_to_all calls "
+          f"{run['all_to_all_calls']}, not {a2a}")
+    if ring:
+        sendrecv = {"forward": [ring + steps] * world, "backward": [ring] * world}
+        check(run["sendrecv_calls"] == sendrecv, f"{phase} sendrecv calls "
+              f"{run['sendrecv_calls']}, not {sendrecv}")
+
+
+def seq_float32(device, checks, card: str, world: int, mesh: tuple, phase: str,
+                core: str = "ulysses") -> dict:
     """`ops.checks.check_seq_parallel` at ``world`` on a (data, seq) mesh of
-    ``mesh`` (ranks on this card over Gloo, or one a card over NCCL),
-    depth 2, float32 without TF32, 3 sgd steps of 2 x 4096, against the
-    dense LMTrainer at world 1 from the same parameters (losses and
-    parameters within the JAX package's rtol 2e-3, atol 2e-4); the same
-    bits on every rank; 4 all_to_all calls a block a step each way; the
-    SIMT flash kernels once a block a step."""
+    ``mesh`` (ranks on this card over Gloo, or one a card over NCCL) with
+    the attention ``core``, depth 2, float32 without TF32, 3 sgd steps of 2
+    x 4096, against the dense LMTrainer at world 1 from the same parameters
+    (losses and parameters within the JAX package's rtol 2e-3, atol 2e-4);
+    the same bits on every rank; `seq_comm_gates`; Ulysses's SIMT flash
+    kernels once a block a step, the ring's dense blocks none."""
     import tempfile
 
     from tpu_dist_torch import models
@@ -2050,11 +2103,12 @@ def seq_float32(device, checks, card: str, world: int, mesh: tuple, phase: str) 
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         run = checks.check_seq_parallel(world, mesh, lm_kw, cfg, windows, lr=lr,
-                                        reference=reference)
-    print(f"{phase} LMTrainer(sequence_parallel='ulysses'), world {world} on a {mesh} data x seq "
+                                        reference=reference, core=core)
+    print(f"{phase} LMTrainer(sequence_parallel={core!r}), world {world} on a {mesh} data x seq "
           f"mesh, {layout(world)}, float32: losses {run['losses']}, max |param - dense| per rank "
           f"{run['max_param_diff']}, all_to_all calls per rank "
-          f"{json.dumps(run['all_to_all_calls'])} ({4 * depth * steps} each way expected), "
+          f"{json.dumps(run['all_to_all_calls'])}, sendrecv calls per rank "
+          f"{json.dumps(run['sendrecv_calls'])}, "
           f"launches per rank {json.dumps(run['launches'])}, tokens/s {run['tokens_per_sec']}, "
           f"peak device memory per rank {run['peak_gb']} GB, parameters the same bits on every "
           f"rank ({run['parameters']} tensors); {time.perf_counter() - t0} s on {card}",
@@ -2062,10 +2116,9 @@ def seq_float32(device, checks, card: str, world: int, mesh: tuple, phase: str) 
     check(all(math.isclose(a, b, rel_tol=2e-3, abs_tol=2e-4)
               for a, b in zip(run["losses"], dense_losses)),
           f"{phase} sequence-parallel losses {run['losses']}, dense {dense_losses}")
-    a2a = {way: [4 * depth * steps] * world for way in ("forward", "backward")}
-    check(run["all_to_all_calls"] == a2a, f"{phase} all_to_all calls "
-          f"{run['all_to_all_calls']}, not {a2a}")
-    expected = {name: [depth * steps if name in LM_F32_ROUTE else 0] * world
+    seq_comm_gates(run, core, world, mesh, depth, steps, phase)
+    route = LM_F32_ROUTE if core == "ulysses" else ()
+    expected = {name: [depth * steps if name in route else 0] * world
                 for name in run["launches"]}
     check(run["launches"] == expected, f"{phase} launches {run['launches']}, not {expected}")
     return run
@@ -2081,57 +2134,72 @@ SEQ_BF16_RTOL = 2e-3
 
 
 def seq_fit(device, checks, card: str, world: int, mesh: tuple, batch: int,
-            steps_per_epoch: int, phase: str) -> dict:
-    """`ops.checks.check_seq_parallel` at full width and depth, bfloat16,
-    AdamW, 2 epochs of ``steps_per_epoch`` steps of ``batch`` x 4096,
-    against the dense LMTrainer at world 1 on the same windows from the same
-    parameters (each epoch's loss within `SEQ_BF16_RTOL`); losses falling,
-    every parameter the same bits on every rank, each tensor-core flash
-    kernel once a block a step on every rank and no other; tokens/s, peak
-    memory, a traced step's all_to_all share."""
+            steps_per_epoch: int, phase: str, core: str = "ulysses", accum: int = 1,
+            lr: float | None = None, seed: int = 0) -> dict:
+    """`ops.checks.check_seq_parallel` with the attention ``core`` at full
+    width and depth, bfloat16, AdamW (at ``lr``, or `LMTrainConfig`'s
+    default), 2 epochs of ``steps_per_epoch`` steps
+    of ``batch`` x 4096 in ``accum`` microbatches (the ring's float32 blocks
+    for the backward take about 15 GB a row at s_local 2048) of the windows
+    made from ``seed``, against the dense LMTrainer at world 1 on the same
+    windows from the same parameters in the same microbatches (each epoch's
+    loss within `SEQ_BF16_RTOL`); losses falling, every parameter the same
+    bits on every rank, `seq_comm_gates`, under Ulysses each tensor-core
+    flash kernel once a block a step on every rank and no other, under the
+    ring no kernel; tokens/s, peak memory, a traced step's all_to_all and
+    sendrecv shares."""
     from tpu_dist_torch import models
     from tpu_dist_torch.train import LMTrainConfig, LMTrainer
 
     steps, depth, seq = 2 * steps_per_epoch, SEQ_LM["depth"], SEQ_LM["max_seq"]
-    windows = models.synthetic_tokens(batch * steps_per_epoch, seq, SEQ_LM["vocab"]).numpy()
-    cfg = dict(epochs=2, global_batch=batch, compute_dtype="bfloat16")
+    windows = models.synthetic_tokens(batch * steps_per_epoch, seq, SEQ_LM["vocab"],
+                                      seed=seed).numpy()
+    cfg = dict(epochs=2, global_batch=batch, compute_dtype="bfloat16", accum_steps=accum,
+               **({} if lr is None else {"lr": lr}))
     lm = models.TransformerLM(**SEQ_LM, generator=torch.Generator().manual_seed(0)).to(device)
     dense = LMTrainer(lm, LMTrainConfig(**cfg, log=lambda line: None), device=device)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     dense_history = dense.fit(windows)
     dense_losses = [s.mean_loss for s in dense_history]
-    print(f"{phase} dense LM at world 1, bfloat16, AdamW, TPU_DIST_FLASH=1, 2 epochs of "
-          f"{steps_per_epoch} steps of {batch} x {seq}: losses {dense_losses}, tokens/s "
+    print(f"{phase} dense LM at world 1, bfloat16, AdamW(lr {cfg.get('lr')}), TPU_DIST_FLASH=1, "
+          f"2 epochs of {steps_per_epoch} steps of {batch} x {seq} (accum_steps {accum}, windows "
+          f"seed {seed}): losses {dense_losses}, tokens/s "
           f"{[s.tokens_per_sec for s in dense_history]} in {time.perf_counter() - t0} s, peak "
           f"device memory {torch.cuda.max_memory_allocated(device) / 1e9} GB", flush=True)
     del dense, lm
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    run = checks.check_seq_parallel(world, mesh, SEQ_LM, cfg, windows, trace=True)
+    run = checks.check_seq_parallel(world, mesh, SEQ_LM, cfg, windows, trace=True, core=core)
     local = batch // mesh[0] * seq // mesh[1]
-    print(f"{phase} LMTrainer(sequence_parallel='ulysses'), world {world} on a {mesh} data x seq "
-          f"mesh, {layout(world)}, {json.dumps(SEQ_LM)}, bfloat16, AdamW, TPU_DIST_FLASH=1, 2 "
-          f"epochs of {steps_per_epoch} steps of {batch} x {seq} ({local} tokens a rank a step): "
-          f"losses {run['losses']} (dense {dense_losses}), tokens/s {run['tokens_per_sec']}, "
+    print(f"{phase} LMTrainer(sequence_parallel={core!r}), world {world} on a {mesh} data x seq "
+          f"mesh, {layout(world)}, {json.dumps(SEQ_LM)}, bfloat16, AdamW(lr {cfg.get('lr')}), "
+          f"TPU_DIST_FLASH=1, 2 "
+          f"epochs of {steps_per_epoch} steps of {batch} x {seq}, accum_steps {accum} ({local} "
+          f"tokens a rank a step): "
+          f"losses {run['losses']} (dense {dense_losses}; relative to dense "
+          f"{[a / b - 1 for a, b in zip(run['losses'], dense_losses)]}), "
+          f"tokens/s {run['tokens_per_sec']}, "
           f"epoch seconds {run['seconds']}, all_to_all calls per rank "
           f"{json.dumps(run['all_to_all_calls'])}, "
           f"host seconds per rank in the backend's all_to_all "
           f"{json.dumps(run['all_to_all_seconds'])} (share of rank 0's fit "
           f"{seq_a2a_share(run, 'all_to_all_seconds')}) and in the whole calls with their copies "
           f"{json.dumps(run['all_to_all_call_seconds'])} (share "
-          f"{seq_a2a_share(run, 'all_to_all_call_seconds')}), launches per rank "
+          f"{seq_a2a_share(run, 'all_to_all_call_seconds')}), sendrecv calls per rank "
+          f"{json.dumps(run['sendrecv_calls'])} and their host seconds with their copies "
+          f"{json.dumps(run['sendrecv_seconds'])} (share {seq_a2a_share(run, 'sendrecv_seconds')}"
+          f"), launches per rank "
           f"{json.dumps(run['launches'])}, peak device memory per rank {run['peak_gb']} GB; "
           f"every parameter the same bits on every rank ({run['parameters']} tensors)",
           flush=True)
     print(f"{phase} traced step per rank (torch.profiler): {json.dumps(run['trace'])} on {card}; "
           f"{time.perf_counter() - t0} s", flush=True)
-    expected = {name: [depth * steps if name in LM_ROUTE else 0] * world
+    route = LM_ROUTE if core == "ulysses" else ()
+    expected = {name: [depth * steps * accum if name in route else 0] * world
                 for name in run["launches"]}
     check(run["launches"] == expected, f"{phase} launches {run['launches']}, not {expected}")
-    a2a = {way: [4 * depth * steps] * world for way in ("forward", "backward")}
-    check(run["all_to_all_calls"] == a2a, f"{phase} all_to_all calls "
-          f"{run['all_to_all_calls']}, not {a2a}")
+    seq_comm_gates(run, core, world, mesh, depth, steps * accum, phase)
     check(all(math.isclose(a, b, rel_tol=SEQ_BF16_RTOL)
               for a, b in zip(run["losses"], dense_losses)),
           f"{phase} bf16 sequence-parallel losses {run['losses']}, dense {dense_losses} "
@@ -2164,6 +2232,174 @@ def seq_ulysses_path(device, checks, card: str) -> None:
     seq_float32(device, checks, card, 4, (2, 2), "[seq-ulysses]")
     seq_fit(device, checks, card, 4, (2, 2), *SEQ_NCCL, phase="[seq-ulysses]")
     print(f"[seq-ulysses] phase {time.perf_counter() - t0} s", flush=True)
+
+
+# [seq-ring]: the ring core on the [seq] model.  One block of the flash ring
+# at world 2: (batch, heads, s_local, head_dim), bfloat16
+SEQ_RING_BLOCK = (2, 12, 2048, 64)
+SEQ_RING_ATTENTION = (2, 12, 4096, 64)  # the ring check's q, k, v, split in two
+SEQ_RING_EVAL = 1  # windows of 4096 in apply_seq_parallel's eval check
+# apply_seq_parallel's logits against each other, the largest difference as
+# a share of the largest dense logit: float32 sums in another order (about
+# 3e-6 between two honest paths, `SERVE_TIE`'s note; 1.4e-6-2.0e-6 measured
+# on an H100 80GB HBM3 at 700 W); in bf16 two bf16 roundings of a logit near
+# 2.6 (the flash ring also rounds each block's output before joining them):
+# 1.14e-2-1.22e-2 measured on that card, the limit 2.5 times that
+SEQ_RING_EVAL_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+SEQ_RING_PROMPT = (1, 2 * 1984)  # generate_seq_parallel: the global prompt
+SEQ_RING_STEPS = 128
+# The dense ring keeps three float32 (b, 12, 2048, 2048) tensors a block step
+# for its backward, about 15 GB a row a rank at depth 12: [seq]'s and
+# [seq-ulysses]' batches and windows in two microbatches, 2 rows a rank a
+# microbatch (at 2 x 4096 without accumulation AdamW's loss rose, dense too),
+# held to the dense run in the same microbatches
+SEQ_RING_BF16 = (4, 4, 2)  # global batch, steps an epoch (two epochs), accum_steps
+SEQ_RING_MARGIN_SEEDS = (1, 2)  # --seq-ring-margin: windows seeds beside the run's 0
+SEQ_RING_NCCL = (8, 4, 2)
+# AdamW's rate for the ring's bf16 fits and their dense references.  At the
+# default 3e-3 the loss first rises above ln(vocab) on these batches and the
+# steps are chaotic: even in float32 the ring and dense part by 1e-3 within
+# 8 steps at world 4, and in bf16 by 6e-3, while the first epoch agrees to
+# 1e-6; at 1e-3 the loss falls from the start and the ring keeps within 8e-4
+# of the dense run in the same microbatches (4e-5 at world 4)
+SEQ_RING_LR = 1e-3
+
+
+def per_rank(counts: dict) -> dict:
+    """A dict of tensors stacked over ranks as lists, one entry a rank."""
+    return {name: n.tolist() for name, n in counts.items()}
+
+
+def seq_ring_generate_reference(device, card: str) -> dict:
+    """Dense greedy `generate` of the float32 [seq] LM (seed 0) on the
+    gathered prompt, and dense's top-2 logit margin at each step
+    (teacher-forced on its own tokens)."""
+    from tpu_dist_torch import models
+
+    prompt = models.synthetic_tokens(*SEQ_RING_PROMPT, SEQ_LM["vocab"], seed=11)
+    lm = models.TransformerLM(**SEQ_LM, generator=torch.Generator().manual_seed(0)).to(device)
+    t0 = time.perf_counter()
+    tokens = lm.generate(prompt.to(device), SEQ_RING_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with torch.no_grad():
+        seq = torch.cat([prompt.to(device), tokens[:, :-1]], dim=1)
+        logits = lm(seq)[0, SEQ_RING_PROMPT[1] - 1:].float()
+    top2 = logits.topk(2).values
+    print(f"[seq-ring] dense generate at world 1, float32: {SEQ_RING_STEPS} greedy steps after "
+          f"{SEQ_RING_PROMPT[1]} prompt tokens in {seconds} s on {card}", flush=True)
+    del lm, logits
+    torch.cuda.empty_cache()
+    return {"prompt": prompt, "tokens": tokens[0].cpu(), "top1": top2[:, 0].cpu(),
+            "margin": (top2[:, 0] - top2[:, 1]).cpu()}
+
+
+def seq_ring_generate_gate(got: torch.Tensor, dense: dict) -> dict:
+    """The context-parallel greedy tokens against dense `generate`'s: equal,
+    or equal up to a first differing step where dense's top-2 margin is a
+    tie (under `SERVE_TIE` float32 times the top logit's size, at least 1),
+    after which the two continue from different tokens."""
+    differ = torch.nonzero(got != dense["tokens"]).flatten()
+    if differ.numel() == 0:
+        return {"equal": True, "first_difference": None}
+    j = int(differ[0])
+    margin = float(dense["margin"][j])
+    tol = SERVE_TIE[torch.float32] * max(1.0, abs(float(dense["top1"][j])))
+    print(f"[seq-ring] generate_seq_parallel leaves dense generate at step {j}: token "
+          f"{int(got[j])} against {int(dense['tokens'][j])}, dense's top-2 margin there "
+          f"{margin} (tie tolerance {tol})", flush=True)
+    check(margin < tol, f"[seq-ring] greedy token at step {j} differs from dense generate's "
+          f"where dense's top-2 margin {margin} is not under the tie tolerance {tol}")
+    return {"equal": False, "first_difference": j, "margin": margin, "tol": tol}
+
+
+def seq_ring_checks(device, checks, card: str) -> dict:
+    """`ops.checks.check_seq_ring` at world 2 on this card: the flash ring
+    against the dense ring and dense attention (bf16 and float32), the
+    full-depth LM's ``apply_seq_parallel(flash=True)`` in eval against
+    ``flash=False`` and the dense forward (float32 and bf16), and greedy
+    ``generate_seq_parallel`` against dense ``generate``."""
+    dense = seq_ring_generate_reference(device, card)
+    t0 = time.perf_counter()
+    dtypes = (torch.bfloat16, torch.float32)
+    res = checks.check_seq_ring(
+        2, attention=[(SEQ_RING_ATTENTION, dtype, True, seed) for seed, dtype in enumerate(dtypes)],
+        lm=[(SEQ_LM, SEQ_RING_EVAL, dtype, 5) for dtype in dtypes],
+        generate=(SEQ_LM, dense["prompt"], SEQ_RING_STEPS))
+    for dtype, case in zip(dtypes, res["attention"]):
+        row = {key: case[key].tolist() for key in ("flash_vs_ring", "flash_vs_dense",
+                                                   "ring_vs_dense", "grad_max_diff", "flash_ms",
+                                                   "ring_ms")}
+        print(f"[seq-ring] ring_attention_flash, q, k, v {list(SEQ_RING_ATTENTION)} "
+              f"{str(dtype)[6:]} causal over 2 ranks on this card, per rank: "
+              f"{json.dumps(row)}, forward launches {json.dumps(per_rank(case['forward_launches']))} "
+              f"(route {case['route'][0]}; causal per call {case['causal_calls'].tolist()}), "
+              f"backward launches {json.dumps(per_rank(case['backward_launches']))}, peak "
+              f"device memory "
+              f"{[b / 1e9 for b in case['peak_bytes'].tolist()]} GB; tolerance "
+              f"{checks.RING_ATTENTION_TOL[dtype]}; the gradient the dense ring's bits",
+              flush=True)
+    for dtype, case in zip(dtypes, res["lm"]):
+        errs = {key: case[key].tolist() for key in ("flash_vs_ring", "flash_vs_dense",
+                                                    "ring_vs_dense")}
+        print(f"[seq-ring] apply_seq_parallel(attention='ring', flash=True) of the [seq] LM "
+              f"(depth {SEQ_LM['depth']}) in eval, {SEQ_RING_EVAL} x {SEQ_LM['max_seq']} "
+              f"{str(dtype)[6:]}, world 2: largest differences over the largest dense logit "
+              f"({case['max_abs_logit'].tolist()}) per rank {json.dumps(errs)}, launches per "
+              f"rank {json.dumps(per_rank(case['launches']))}, seconds "
+              f"{case['flash_seconds'].tolist()}",
+              flush=True)
+        tol = SEQ_RING_EVAL_TOL[dtype]
+        check(all(max(v) <= tol for v in errs.values()),
+              f"[seq-ring] apply_seq_parallel {str(dtype)[6:]} differences {errs} over {tol}")
+    got = res["generate"]["tokens"][0, 0]
+    gate = seq_ring_generate_gate(got, dense)
+    print(f"[seq-ring] generate_seq_parallel, float32, world 2, {SEQ_RING_PROMPT[1]} prompt "
+          f"tokens, {SEQ_RING_STEPS} greedy steps: {json.dumps(gate)}, seconds per rank "
+          f"{res['generate']['seconds'].tolist()}; {time.perf_counter() - t0} s in all",
+          flush=True)
+    return res
+
+
+def seq_ring_path(device, fa, F, flops, checks, card: str) -> dict:
+    """[seq-ring]: the tensor-core flash kernels against their plain versions
+    at the flash ring's block, causal and not; `seq_ring_checks`; then the
+    ring core's float32 world-2 fit against the dense one and its bf16 fit
+    at full depth."""
+    t0 = time.perf_counter()
+    os.environ["TPU_DIST_FLASH"] = "1"
+    rows = flash_cases(device, fa, F, flops, checks,
+                       cases=[("ring_diagonal", SEQ_RING_BLOCK, torch.bfloat16, True, None),
+                              ("ring_off_diagonal", SEQ_RING_BLOCK, torch.bfloat16, False, None)],
+                       phase="[seq-ring]")
+    print(f"[seq-ring] flash at the ring's block: {time.perf_counter() - t0} s", flush=True)
+    t1 = time.perf_counter()
+    ring = seq_ring_checks(device, checks, card)
+    print(f"[seq-ring] ring checks: {time.perf_counter() - t1} s", flush=True)
+    t1 = time.perf_counter()
+    f32 = seq_float32(device, checks, card, 2, (1, 2), "[seq-ring]", core="ring")
+    print(f"[seq-ring] float32 fit: {time.perf_counter() - t1} s", flush=True)
+    t1 = time.perf_counter()
+    batch, steps, accum = SEQ_RING_BF16
+    bf16 = seq_fit(device, checks, card, 2, (1, 2), batch, steps, phase="[seq-ring]",
+                   core="ring", accum=accum, lr=SEQ_RING_LR)
+    print(f"[seq-ring] bf16 fit: {time.perf_counter() - t1} s; phase "
+          f"{time.perf_counter() - t0} s on {card}", flush=True)
+    return {"rows": rows, "ring": ring, "float32": f32, "bfloat16": bf16}
+
+
+def seq_ring_nccl_path(device, checks, card: str) -> None:
+    """[seq-ring] (--nccl): ``LMTrainer(sequence_parallel="ring")`` at world 4
+    on a (2, 2) mesh, one rank a card over NCCL: depth 2 in float32 against
+    the dense LM at world 1, then full depth, bfloat16, AdamW, 2 x 4 steps
+    of 8 x 4096 in two microbatches."""
+    t0 = time.perf_counter()
+    os.environ["TPU_DIST_FLASH"] = "1"
+    seq_float32(device, checks, card, 4, (2, 2), "[seq-ring]", core="ring")
+    batch, steps, accum = SEQ_RING_NCCL
+    seq_fit(device, checks, card, 4, (2, 2), batch, steps, phase="[seq-ring]", core="ring",
+            accum=accum, lr=SEQ_RING_LR)
+    print(f"[seq-ring] phase {time.perf_counter() - t0} s", flush=True)
 
 
 def build_all(_build) -> None:
@@ -2204,12 +2440,27 @@ def main() -> None:
     print("[env] TF32 off for matmul and cuDNN (float32 computed in float32)", flush=True)
 
     if sys.argv[1:] not in ([], ["--lm-f32"], ["--nccl"], ["--resume"], ["--main"], ["--image"],
-                            ["--serve"], ["--moe"], ["--seq"]):
+                            ["--serve"], ["--moe"], ["--seq"], ["--seq-ring-margin"]):
         sys.exit("usage: python3 chip_smoke.py [--lm-f32 | --nccl | --resume | --main | --image "
-                 "| --serve | --moe | --seq]")
+                 "| --serve | --moe | --seq | --seq-ring-margin]")
+    if sys.argv[1:] == ["--seq-ring-margin"]:
+        build_all(_build)
+        os.environ["TPU_DIST_FLASH"] = "1"
+        batch, steps, accum = SEQ_RING_BF16
+        failed = []
+        for seed in SEQ_RING_MARGIN_SEEDS:  # every seed's reading, whatever the first gives
+            try:
+                seq_fit(device, checks, card_and_power_limit(), 2, (1, 2), batch, steps,
+                        phase="[seq-ring]", core="ring", accum=accum, lr=SEQ_RING_LR, seed=seed)
+            except RuntimeError as err:
+                print(f"[seq-ring] windows seed {seed}: {err}", flush=True)
+                failed.append(seed)
+        check(not failed, f"[seq-ring] bf16 fit failed at windows seeds {failed}")
+        return
     if sys.argv[1:] == ["--seq"]:
         build_all(_build)
         seq_path(device, fa, F, flops, checks, card_and_power_limit())
+        seq_ring_path(device, fa, F, flops, checks, card_and_power_limit())
         return
     if sys.argv[1:] == ["--moe"]:
         build_all(_build)
@@ -2248,6 +2499,7 @@ def main() -> None:
         image_dp_path(checks, card_and_power_limit())
         moe_ep_path(checks, card_and_power_limit())
         seq_ulysses_path(device, checks, card_and_power_limit())
+        seq_ring_nccl_path(device, checks, card_and_power_limit())
         return
 
     build_all(_build)
@@ -2269,6 +2521,17 @@ def main() -> None:
     seq = seq_path(device, fa, F, flops, checks, card_and_power_limit())
     seq_launches = {"world 2, float32, 3 steps, per rank": seq["float32"]["launches"],
                     "world 2, bf16, 8 steps, per rank": seq["bfloat16"]["launches"]}
+    seq_ring = seq_ring_path(device, fa, F, flops, checks, card_and_power_limit())
+    ring_launches = {"ring trainer, world 2, float32, 3 steps, per rank":
+                     seq_ring["float32"]["launches"],
+                     "ring trainer, world 2, bf16, 8 steps, per rank":
+                     seq_ring["bfloat16"]["launches"]}
+    for dtype, case in zip(("bf16", "float32"), seq_ring["ring"]["attention"]):
+        ring_launches[f"ring_attention_flash, {dtype}, one call, per rank"] = per_rank(
+            case["forward_launches"])
+    for dtype, case in zip(("bf16", "float32"), seq_ring["ring"]["lm"]):
+        ring_launches[f"apply_seq_parallel(flash=True) eval, {dtype}, per rank"] = per_rank(
+            case["launches"])
 
     step = rows[:2]  # the two launches of one training step
     kernel = {
@@ -2290,6 +2553,7 @@ def main() -> None:
         "launches_serve": served["launches"]["fused_dense"],
         "launches_moe": moe["launches"]["fused_dense"],
         "launches_seq": {run: n["fused_dense"] for run, n in seq_launches.items()},
+        "launches_seq_ring": {run: n["fused_dense"] for run, n in ring_launches.items()},
         "image_heads": [{key: r[key] for key in ("m", "k", "n", "dtype", "max_abs_err", "ms",
                                                  "plain_ms", "bound_ms", "bound_by",
                                                  "library_ms")}
@@ -2335,6 +2599,12 @@ def main() -> None:
                                     moe["ep"][compute]["launches"][name]
                                     for compute in ("float32", "bfloat16")}}
         entry["launches_seq"] = {run: n[name] for run, n in seq_launches.items()}
+        entry["launches_seq_ring"] = {run: n[name] for run, n in ring_launches.items()}
+        if on_lm:  # the same kernel at the flash ring's block of [seq-ring]
+            entry["seq_ring"] = [{key: r[key] for key in (
+                "case", "q", "dtype", "causal", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "tflops")}
+                for r in seq_ring["rows"] if r["kernel"] == name]
         if on_lm:  # the same kernel at the Ulysses shape of [seq]
             row = next(r for r in seq["rows"] if r["kernel"] == name)
             entry["seq_ulysses"] = {key: row[key] for key in (
@@ -2363,6 +2633,8 @@ def main() -> None:
                          moe["ep"][compute]["launches"]["ring_all_reduce_pallas"]
                          for compute in ("float32", "bfloat16")},
         "launches_seq": {run: n["ring_all_reduce_pallas"] for run, n in seq_launches.items()},
+        "launches_seq_ring": {run: n["ring_all_reduce_pallas"]
+                              for run, n in ring_launches.items()},
         "schedule": RING_SCHEDULE,
         "work": f"one call of {timing['bytes_per_rank']} bytes of float32 per rank at world "
                 f"{timing['world']}, every rank a process on this one card; max_abs_err: that "

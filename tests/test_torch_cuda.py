@@ -3,7 +3,8 @@
 and dQ, the SIMT forward, dK/dV and dQ) and the ring all-reduce across
 processes; the MoE LM's step on the card against the CPU; and sequence
 parallelism (``-k seq``: the flash kernels at the Ulysses shape, a grouped
-all_to_all, the Ulysses trainer against the dense one).  The flash, ring,
+all_to_all, the Ulysses trainer against the dense one, the flash ring
+against its plain blocks).  The flash, ring,
 MoE and sequence-parallel checks are the port's own
 (`tpu_dist_torch.ops.checks`), which ``chip_smoke.py`` runs too.
 
@@ -524,3 +525,15 @@ def test_seq_trainer_on_the_card_matches_the_dense_one(card, tmp_path):
     assert run["all_to_all_calls"] == {way: [4 * depth * steps] * 2
                                        for way in ("forward", "backward")}
     assert run["launches"]["flash_fwd_simt"] == [depth * steps] * 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_seq_ring_attention_flash_matches_its_plain_blocks(card, causal, dtype):
+    """``ring_attention_flash`` at world 2 on the card (the route's forward
+    kernel on each block: SIMT in float32, the tensor cores in bf16) against
+    its plain blocks on the CPU, the dense ring and dense attention on the
+    gathered sequence; its gradient the dense ring's bits; 1 + 1 forward
+    launches a call a rank, none in the backward."""
+    res = checks.check_ring_attention(2, (1, 4, 512, 64), dtype, causal=causal, plain=True)
+    assert res["route"] == ["simt" if dtype == torch.float32 else "sm90"] * 2

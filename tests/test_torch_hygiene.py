@@ -41,7 +41,7 @@ def test_importing_the_port_loads_neither_jax_nor_tpu_dist():
         "import tpu_dist_torch.demos.generate, tpu_dist_torch.demos.serve_demo\n"
         "import tpu_dist_torch.parallel.moe, tpu_dist_torch.demos.train_lm_modes\n"
         "import tpu_dist_torch.comm.mesh, tpu_dist_torch.parallel.ulysses\n"
-        "import tpu_dist_torch.parallel.ring_attention\n"
+        "import tpu_dist_torch.parallel.ring_attention, tpu_dist_torch.demos.ring_attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpu_dist'))\n"
         "assert not bad, bad\n"
     )

@@ -357,6 +357,14 @@ def test_refusals_match_jax():
                   dict(pipeline="gpipe")):
         with pytest.raises(ValueError, match="mutually exclusive"):
             LMTrainer(lm, LMTrainConfig(moe=True, **other), device="cpu")
+        if "sequence_parallel" in other:  # ported: JAX's refusal of the 1-D mesh
+            with pytest.raises(ValueError, match="needs a 'seq' mesh axis") as e:
+                LMTrainer(lm, LMTrainConfig(**other), device="cpu")
+            with pytest.raises(ValueError, match="needs a 'seq' mesh axis") as j:
+                jax_train.LMTrainer(jax_models.TransformerLM(**DENSE), mesh,
+                                    jax_train.LMTrainConfig(**other))
+            assert str(e.value) == str(j.value)
+            continue
         with pytest.raises(NotImplementedError, match="item 10"):
             LMTrainer(lm, LMTrainConfig(**other), device="cpu")
 

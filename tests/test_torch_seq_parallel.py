@@ -356,8 +356,12 @@ def test_trainer_refusals_match_jax():
     for other in (dict(moe=True), dict(tensor_parallel="psum"), dict(pipeline="gpipe")):
         _raises_like_jax(*both(dict(sequence_parallel="ulysses", **other), seq, jax_seq),
                          match="mutually exclusive")
-    with pytest.raises(NotImplementedError, match="entry 1a: ring attention"):
-        LMTrainer(lm, LMTrainConfig(sequence_parallel="ring"), device="cpu", mesh=seq)
+    # the ring core builds, as the JAX LMTrainer's does, and wants its mesh axis
+    ring = dict(sequence_parallel="ring")
+    assert LMTrainer(lm, LMTrainConfig(**ring), device="cpu", mesh=seq).config == \
+        LMTrainConfig(**ring)
+    jax_train.LMTrainer(jlm, jax_seq, jax_train.LMTrainConfig(**ring))
+    _raises_like_jax(*both(ring, flat, jax_flat), match="needs a 'seq' mesh axis")
     with pytest.raises(ValueError, match="the mesh is the 1-D 'data' mesh"):
         LMTrainer(lm, LMTrainConfig(), device="cpu", mesh=seq)
     with pytest.raises(ValueError, match="holds 4 ranks; the world has 1"):
@@ -381,8 +385,10 @@ def test_seq_parallel_refusals_match_jax():
     refused(dict(sliding_window=4), dict(attention="ring", flash=True),
             "sliding_window is not supported with use_flash")
     refused({}, dict(attention="bogus"), "core must be 'ring' or 'ulysses'")
-    with pytest.raises(NotImplementedError, match="entry 1a: ring attention"):
-        models.TransformerLM(**LM).apply_seq_parallel(torch.zeros((1, 8), dtype=torch.long))
+    # the default core, the ring, at world 1 is the dense forward
+    lm = models.TransformerLM(**LM, generator=torch.Generator().manual_seed(1))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, LM["vocab"], (2, 8)))
+    torch.testing.assert_close(lm.apply_seq_parallel(tokens), lm(tokens), rtol=1e-5, atol=1e-5)
 
 
 def test_ring_module_keeps_the_dense_parameters_and_refusals():
@@ -391,17 +397,19 @@ def test_ring_module_keeps_the_dense_parameters_and_refusals():
         _raises_like_jax(lambda: RingMultiHeadAttention(16, 4, **kw),
                          lambda: jax_parallel.RingMultiHeadAttention(16, 4, axis_name=AXIS, **kw),
                          match=match)
-    with pytest.raises(NotImplementedError, match="entry 1a: ring attention"):
-        RingMultiHeadAttention(16, 4)
-    # at world 1 the module is the dense one, on the same state dict
+    # at world 1 the module is the dense one, on the same state dict, with
+    # either core (the ring's default and its flash blocks too)
     from tpu_dist_torch import nn
 
-    ring = RingMultiHeadAttention(16, 4, causal=True, use_rope=True, core="ulysses",
-                                  sliding_window=3, generator=torch.Generator().manual_seed(2))
     dense = nn.MultiHeadAttention(16, 4, causal=True, use_rope=True, sliding_window=3)
-    dense.load_state_dict(ring.state_dict())
     x = torch.randn(2, 8, 16, generator=torch.Generator().manual_seed(3))
-    torch.testing.assert_close(ring(x), dense(x), rtol=1e-6, atol=1e-6)
+    for kw in (dict(core="ulysses", sliding_window=3), dict(sliding_window=3),
+               dict(use_flash=True)):
+        ring = RingMultiHeadAttention(16, 4, causal=True, use_rope=True, **kw,
+                                      generator=torch.Generator().manual_seed(2))
+        dense.sliding_window = kw.get("sliding_window")
+        dense.load_state_dict(ring.state_dict())
+        torch.testing.assert_close(ring(x), dense(x), rtol=1e-6, atol=1e-6, msg=str(kw))
 
 
 def test_modes_demo_trains_seq_ulysses_at_world_four(monkeypatch, capsys):
@@ -414,7 +422,11 @@ def test_modes_demo_trains_seq_ulysses_at_world_four(monkeypatch, capsys):
     losses = train_lm_modes.main(["--mode", "seq_ulysses", "--world", "4", "--device", "cpu"])
     assert len(losses) == 2 and losses[1] < losses[0]
     assert "mode=seq_ulysses  world=4  [cpu]" in capsys.readouterr().out
+    # seq_ring is ported (it trains in test_torch_ring_attention.py); the
+    # modes still to port exit naming their item
+    assert train_lm_modes.MODES["seq_ring"] == (((2, 2), ("data", "seq")),
+                                                {"sequence_parallel": "ring"})
     with pytest.raises(SystemExit, match="item 10"):
-        train_lm_modes.main(["--mode", "seq_ring", "--device", "cpu"])
+        train_lm_modes.main(["--mode", "tp_psum", "--device", "cpu"])
     with pytest.raises(SystemExit):
         train_lm_modes.main(["--mode", "seq_ulysses", "--world", "2", "--device", "cpu"])

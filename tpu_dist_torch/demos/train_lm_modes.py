@@ -4,12 +4,14 @@ demos/train_lm_modes.py.
     python -m tpu_dist_torch.demos.train_lm_modes --mode moe
     python -m tpu_dist_torch.demos.train_lm_modes --mode dp --world 2 --device cpu
     python -m tpu_dist_torch.demos.train_lm_modes --mode seq_ulysses --world 4 --device cpu
+    python -m tpu_dist_torch.demos.train_lm_modes --mode seq_ring --world 4 --device cpu
 
 ``--mode dp`` trains the TransformerLM data-parallel, ``--mode moe``
 expert-parallel (``LMTrainer(moe=True)``: ``moe_experts`` = the world, one
-expert per rank, capacity factor ``2 * world`` so that no token drops) and
-``--mode seq_ulysses`` sequence-parallel on the JAX demo's (2, 2) data x
-seq mesh (``LMTrainer(sequence_parallel="ulysses")``, world 4), at the JAX
+expert per rank, capacity factor ``2 * world`` so that no token drops),
+``--mode seq_ring`` and ``--mode seq_ulysses`` sequence-parallel on the JAX
+demo's (2, 2) data x seq mesh (``LMTrainer(sequence_parallel="ring")``,
+the K/V ring, or ``"ulysses"``; world 4), at the JAX
 demo's settings: vocab 64, dim 32, depth 4, heads 4, ``max_seq = --seq``,
 ``sgd(0.1)``, ``8 * --batch`` windows of the synthetic Markov corpus.
 Every rank is a process started by `comm.spmd`, on the card by default
@@ -35,10 +37,10 @@ from tpu_dist_torch.train import LMTrainConfig, LMTrainer, sgd, sgd_rule
 MODES = {
     "dp": (None, {}),
     "moe": (None, {"moe": True}),
+    "seq_ring": (((2, 2), ("data", "seq")), {"sequence_parallel": "ring"}),
     "seq_ulysses": (((2, 2), ("data", "seq")), {"sequence_parallel": "ulysses"}),
 }
-NOT_PORTED = ("fsdp", "zero1", "tp_psum", "tp_sp", "fsdp_tp_sp", "seq_ring", "pipe_gpipe",
-              "pipe_1f1b")
+NOT_PORTED = ("fsdp", "zero1", "tp_psum", "tp_sp", "fsdp_tp_sp", "pipe_gpipe", "pipe_1f1b")
 
 
 def run(mode: str, epochs: int, seq: int, batch: int, device_type: str) -> torch.Tensor:
@@ -74,7 +76,8 @@ def main(argv: list[str] | None = None) -> list[float]:
     if args.mode in NOT_PORTED:
         raise SystemExit(
             f"--mode {args.mode}: not ported yet (ROADMAP queue 1, item 10, the parallel "
-            "strategies); the port runs --mode dp, --mode moe and --mode seq_ulysses"
+            "strategies); the port runs --mode dp, --mode moe, --mode seq_ring and --mode "
+            "seq_ulysses"
         )
     if args.mode not in MODES:
         raise SystemExit(f"--mode must be one of {sorted([*MODES, *NOT_PORTED])}, got "

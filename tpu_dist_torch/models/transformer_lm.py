@@ -25,12 +25,14 @@ dispatched by all_to_all (`parallel.moe_mlp_top2`), which
 ``LMTrainer(moe=True)`` trains.
 
 Sequence parallelism: `apply_seq_parallel` runs the blocks on this rank's
-shard of the sequence with the attention core sharded over a group
-(``attention="ulysses"``, `parallel.ulysses_attention`), and
+shard of the sequence with the attention core sharded over a group (the
+K/V ring, `parallel.ring_attention`, with ``flash=True`` its flash blocks;
+or ``attention="ulysses"``, `parallel.ulysses_attention`), and
 `lm_loss_seq_parallel` is the next-token loss across the shards'
-boundaries; ``LMTrainer(sequence_parallel="ulysses")`` trains them.  The
-ring core, and the tensor- and pipeline-parallel forms, are not ported yet
-(ROADMAP queue 1, item 10).
+boundaries; ``LMTrainer(sequence_parallel="ring"|"ulysses")`` trains them.
+`generate_seq_parallel` decodes after a sequence-sharded prompt whose K/V
+stay sharded (context-parallel decode).  The tensor- and pipeline-parallel
+forms are not ported yet (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -43,7 +45,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpu_dist_torch import nn
-from tpu_dist_torch.comm.collectives import Group, rank, sendrecv, world_size
+from tpu_dist_torch.comm.collectives import (
+    Group,
+    ReduceOp,
+    all_reduce,
+    rank,
+    sendrecv,
+    world_size,
+)
 from tpu_dist_torch.models.vit import EncoderBlock
 from tpu_dist_torch.parallel.moe import moe_mlp_top2
 
@@ -180,19 +189,19 @@ class TransformerLM(torch.nn.Module):
         order (the world without one); returns its ``(b, s_local, vocab)``
         logits, those of the dense `forward` on the gathered sequence at
         this shard's positions.  The same parameters as `forward`; only
-        attention talks to the other ranks (``attention="ulysses"``: head
-        resharding by all_to_all, the local attention routed to the flash
-        kernels by ``TPU_DIST_FLASH``).  ``flash`` selects the ring core's
-        flash blocks; the ring core is not ported yet (ROADMAP queue 1, item 10,
-        entry 1a)."""
+        attention talks to the other ranks: ``attention="ring"`` rotates
+        K/V blocks around the group (``flash=True``: each block on the
+        flash forward, `parallel.ring_attention_flash`), ``"ulysses"``
+        reshards heads by all_to_all, its local attention routed to the
+        flash kernels by ``TPU_DIST_FLASH``."""
         from tpu_dist_torch.parallel.ring_attention import check_core, sharded_attention
 
-        check_core(attention, flash, self.sliding_window)
         if self.kv_heads != self.heads:
             raise ValueError(
                 "apply_seq_parallel requires kv_heads == heads (the ring attention core uses "
                 "the fused-QKV layout)"
             )
+        check_core(attention, flash, self.sliding_window)
         n = world_size(group)
         s_local = tokens_local.shape[1]
         if n * s_local > self.max_seq:
@@ -202,9 +211,139 @@ class TransformerLM(torch.nn.Module):
             )
         h = self._trunk(tokens_local, pos_offset=rank(group) * s_local)
         for blk in self.blocks:
-            h = h + sharded_attention(blk.attn, blk.ln1(h), group)
+            h = h + sharded_attention(blk.attn, blk.ln1(h), group, core=attention,
+                                      use_flash=flash)
             h = h + blk.mlp_or_moe(blk.ln2(h))
         return self.ln(h) @ self.embed.table.T
+
+    # ---- context-parallel decode (a sequence-sharded prompt cache) -------
+
+    def _project_qkv(self, attn, x: torch.Tensor, positions: torch.Tensor):
+        """The fused-QKV projection of ``x`` (b, s, dim) and rope at the
+        GLOBAL ``positions``: q, k, v each (b, heads, s, head_dim)."""
+        q, k, v = attn._project(x)
+        if self.pos_embedding == "rope":
+            q, k = nn.rope(q, positions), nn.rope(k, positions)
+        return q, k, v
+
+    @torch.no_grad()
+    def generate_seq_parallel(
+        self,
+        prompt_local,
+        steps: int,
+        group: Group | None = None,
+        *,
+        generator: torch.Generator | None = None,
+        seed: int | None = None,
+        temperature: float = 0.0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+    ) -> torch.Tensor:
+        """Decode ``steps`` tokens after a sequence-sharded prompt:
+        ``prompt_local`` ``(b, s_local)`` is this rank's shard, split over
+        ``group`` in member order.  Context-parallel serving: a prompt too
+        long for one card's KV cache keeps its K/V sharded, 1/n a rank, for
+        the whole decode.
+
+        Prefill: `apply_seq_parallel`'s blocks on the ring core, keeping
+        each block's local K/V; the last global position's logits reach
+        every rank by one all_reduce.  Decode: each new token is computed
+        on every rank; each rank scores it against its prompt shard, and
+        the shards' partials merge exactly by their log-sum-exp (an
+        all_reduce MAX of the lse, then SUM of the weighted numerators and
+        of the weights) with a replicated cache of the generated tokens.
+        Sampling is `generate`'s, with the noise from ``generator`` (or one
+        on the model's device seeded with ``seed``, 0 by default), so every
+        rank seeded alike draws the same token.  Returns ``(b, steps)``
+        tokens in the prompt's integer dtype on every rank."""
+        from tpu_dist_torch.parallel.ring_attention import NEG_INF, ring_attention
+        from tpu_dist_torch.serve import sampling
+
+        if self.sliding_window is not None:
+            raise ValueError(
+                "generate_seq_parallel does not support sliding_window yet — context-parallel "
+                "decode computes the full causal mask; use dense generate() or "
+                "generate_tensor_parallel()"
+            )
+        if self.kv_heads != self.heads:
+            raise ValueError("generate_seq_parallel requires kv_heads == heads (fused-QKV layout)")
+        n, r = world_size(group), rank(group)
+        device = self.embed.table.device
+        prompt_local = torch.as_tensor(prompt_local, device=device)
+        b, s_l = prompt_local.shape
+        S = n * s_l  # the global prompt's length
+        if S + steps > self.max_seq:
+            raise ValueError(f"prompt {S} + steps {steps} exceeds max_seq {self.max_seq}")
+        sample = _make_sampler(temperature, top_k, top_p)
+        noisy = temperature != 0.0
+        if noisy and generator is None:
+            generator = torch.Generator(device).manual_seed(0 if seed is None else seed)
+
+        # prefill: the ring, keeping each block's local K/V
+        h = self._trunk(prompt_local, pos_offset=r * s_l)
+        pos_local = r * s_l + torch.arange(s_l, device=device)
+        prompt_cache = []
+        for blk in self.blocks:
+            q, k, v = self._project_qkv(blk.attn, blk.ln1(h), pos_local)
+            o = ring_attention(q, k, v, group, causal=True)
+            h = h + blk.attn.out(o.transpose(1, 2).reshape(b, s_l, self.dim))
+            h = h + blk.mlp_or_moe(blk.ln2(h))
+            prompt_cache.append((k.float(), v.float()))
+        last = self.ln(h)[:, -1] @ self.embed.table.T
+        # the last global position lives on the last member
+        last = all_reduce(last if r == n - 1 else torch.zeros_like(last), group=group)
+
+        # decode: a replicated cache of the generated tokens
+        hd = self.dim // self.heads
+        dt = self.embed.table.dtype
+        dec_cache = [torch.zeros((2, b, self.heads, steps, hd), dtype=dt, device=device)
+                     for _ in self.blocks]
+        slots = torch.arange(steps, device=device)
+        out = torch.empty((b, steps), dtype=prompt_local.dtype, device=device)
+        for t in range(steps):
+            noise = sampling.gumbel(last.shape, last.dtype, generator) if noisy else None
+            tok = sample(last, noise).to(prompt_local.dtype)
+            out[:, t] = tok
+            if t + 1 == steps:
+                break  # the next token's logits would go unused
+            hh = self._trunk(tok[:, None], pos_offset=S + t)
+            pos = torch.tensor([S + t], device=device)
+            for blk, (pk, pv), dc in zip(self.blocks, prompt_cache, dec_cache):
+                q, k_new, v_new = self._project_qkv(blk.attn, blk.ln1(hh), pos)
+                dc[0, :, :, t] = k_new[:, :, 0]
+                dc[1, :, :, t] = v_new[:, :, 0]
+                qs = (q * hd**-0.5).float()
+                # this rank's prompt shard
+                lg_p = qs @ pk.transpose(-1, -2)
+                m_p = lg_p.amax(-1)
+                p_p = torch.exp(lg_p - m_p[..., None])
+                l_p = p_p.sum(-1)
+                out_p = (p_p @ pv) / l_p[..., None]
+                lse_p = m_p + torch.log(l_p)
+                # the generated window, positions <= t
+                lg_d = qs @ dc[0].float().transpose(-1, -2)
+                valid = slots <= t
+                lg_d = torch.where(valid, lg_d, NEG_INF)
+                m_d = lg_d.amax(-1)
+                p_d = torch.where(valid, torch.exp(lg_d - m_d[..., None]), 0.0)
+                l_d = p_d.sum(-1)
+                out_d = (p_d @ dc[1].float()) / l_d.clamp(min=1e-30)[..., None]
+                lse_d = m_d + torch.log(l_d.clamp(min=1e-30))
+                # exact merge: the prompt partials summed over the group (the
+                # numerator and the weight in one call), the window's (the
+                # same on every rank) added once
+                m_star = torch.maximum(all_reduce(lse_p.clone(), ReduceOp.MAX, group=group),
+                                       lse_d)
+                w_p = torch.exp(lse_p - m_star)[..., None]
+                w_d = torch.exp(lse_d - m_star)[..., None]
+                summed = all_reduce(torch.cat([w_p * out_p, w_p], dim=-1), group=group)
+                num = summed[..., :-1] + w_d * out_d
+                den = summed[..., -1:] + w_d
+                o = (num / den).to(hh.dtype)
+                hh = hh + blk.attn.out(o.transpose(1, 2).reshape(b, 1, self.dim))
+                hh = hh + blk.mlp_or_moe(blk.ln2(hh))
+            last = self.ln(hh)[:, 0] @ self.embed.table.T
+        return out
 
     # ---- autoregressive inference (KV cache) ----------------------------
 

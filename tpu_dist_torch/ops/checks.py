@@ -44,10 +44,18 @@ and by ``chip_smoke.py``:
   the CPU, and its cached prefill against its forward;
 - `check_seq_all_to_all`: ``all_to_all`` over a mesh axis on CUDA tensors,
   and its gradient, against the plain version;
-- `check_seq_parallel`: ``LMTrainer(sequence_parallel="ulysses")`` on a
-  (data, seq) mesh of ranks, every rank the same bits, optionally held to
-  a reference's parameters, with its all_to_all calls, launch counts and
-  peak memory, and optionally one traced step (`trace_step`).
+- `check_seq_parallel`: ``LMTrainer(sequence_parallel="ulysses"|"ring")``
+  on a (data, seq) mesh of ranks, every rank the same bits, optionally
+  held to a reference's parameters, with its all_to_all and sendrecv
+  calls, launch counts and peak memory, and optionally one traced step
+  (`trace_step`);
+- `check_ring_attention`: ``ring_attention_flash`` at a world of ranks
+  sharing the card against ``ring_attention``, dense attention on the
+  gathered sequence and optionally its plain blocks on the CPU, its
+  gradient the dense ring's bits, its forward launches a call;
+  `check_seq_ring` runs those cases, the full LM's
+  ``apply_seq_parallel(flash=True)`` in eval and greedy
+  ``generate_seq_parallel`` in one spawned world.
 
 Each raises AssertionError when a check fails (also under ``python -O``)
 and returns what it measured.  Nothing here runs without a card.
@@ -938,16 +946,18 @@ MOE_WIDTH = dict(vocab=32768, dim=768, heads=12, max_seq=1024, pos_embedding="ro
 MOE_EP_TOL = dict(rtol=2e-3, atol=2e-4)  # the JAX package's tests/test_lm_mode_matrix.py
 
 
-class _AllToAllInstruments:
+class _CommInstruments:
     """While active, this process's all_to_all calls (`dist.all_to_all_single`)
-    are counted, the forward's (on the main thread) apart from the
-    backward's (on autograd's device thread, the tensors being on the
-    card), with their host seconds: ``seconds`` inside the backend's call
-    (under Gloo the exchange of host buffers, the wait for the slowest rank
-    included; under NCCL the enqueue alone) and ``call_seconds`` inside
-    `comm.all_to_all`'s whole exchange (under Gloo also the copy to the
-    host, which first waits for the work queued on the card, and the copy
-    back).  The dropped fraction of every expert-parallel MoE layer
+    and `comm.sendrecv` exchanges (`collectives._permute`) are counted, the
+    forward's (on the main thread) apart from the backward's (on autograd's
+    device thread, the tensors being on the card), with their host
+    seconds: ``seconds`` inside the backend's all_to_all (under Gloo the
+    exchange of host buffers, the wait for the slowest rank included; under
+    NCCL the enqueue alone), ``call_seconds`` inside `comm.all_to_all`'s
+    whole exchange (under Gloo also the copy to the host, which first waits
+    for the work queued on the card, and the copy back), and
+    ``sendrecv_seconds`` inside each whole sendrecv exchange, its copies
+    included.  The dropped fraction of every expert-parallel MoE layer
     (`moe_mlp_top2`'s stats) is kept."""
 
     def __enter__(self):
@@ -958,19 +968,22 @@ class _AllToAllInstruments:
         from tpu_dist_torch.comm import collectives
         from tpu_dist_torch.models import transformer_lm
 
-        self.calls = {"forward": 0, "backward": 0}
-        self.seconds = {"forward": 0.0, "backward": 0.0}
-        self.call_seconds = {"forward": 0.0, "backward": 0.0}
+        ways = ("forward", "backward")
+        self.calls = dict.fromkeys(ways, 0)
+        self.seconds = dict.fromkeys(ways, 0.0)
+        self.call_seconds = dict.fromkeys(ways, 0.0)
+        self.sendrecv_calls = dict.fromkeys(ways, 0)
+        self.sendrecv_seconds = dict.fromkeys(ways, 0.0)
         self.dropped = []
         self._dist, self._lm, self._collectives = dist, transformer_lm, collectives
         self._a2a, self._top2 = dist.all_to_all_single, transformer_lm.moe_mlp_top2
-        self._exchange = collectives._exchange
+        self._exchange, self._permute = collectives._exchange, collectives._permute
 
-        def timed(fn, seconds, count):
+        def timed(fn, seconds, calls, count):
             def call(*args, **kw):
                 main = threading.current_thread() is threading.main_thread()
                 way = "forward" if main else "backward"
-                self.calls[way] += count
+                calls[way] += count
                 t0 = time.perf_counter()
                 try:
                     return fn(*args, **kw)
@@ -983,14 +996,17 @@ class _AllToAllInstruments:
             self.dropped.append(stats["dropped_fraction"].detach())
             return y, stats
 
-        dist.all_to_all_single = timed(self._a2a, self.seconds, 1)
-        collectives._exchange = timed(self._exchange, self.call_seconds, 0)
+        dist.all_to_all_single = timed(self._a2a, self.seconds, self.calls, 1)
+        collectives._exchange = timed(self._exchange, self.call_seconds, self.calls, 0)
+        collectives._permute = timed(self._permute, self.sendrecv_seconds, self.sendrecv_calls,
+                                     1)
         transformer_lm.moe_mlp_top2 = top2
         return self
 
     def __exit__(self, *exc):
         self._dist.all_to_all_single, self._lm.moe_mlp_top2 = self._a2a, self._top2
         self._collectives._exchange = self._exchange
+        self._collectives._permute = self._permute
 
 
 def _launches() -> dict:
@@ -1015,8 +1031,9 @@ def trace_step(step) -> dict:
     ms, its all_to_all kernels' ms (NCCL's send/receive or all-to-all
     kernels), its all-reduce kernels' ms, the step's wall ms to the end of
     its device work, and the host ms inside all_to_all calls
-    (`_AllToAllInstruments`: under Gloo, where no kernel moves the data,
-    the exchange itself, and the whole calls with their copies)."""
+    (`_CommInstruments`: under Gloo, where no kernel moves the data,
+    the exchange itself, and the whole calls with their copies) and inside
+    sendrecv exchanges with their copies."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1026,7 +1043,7 @@ def trace_step(step) -> dict:
         torch.cuda.synchronize()
         comm.barrier()
         prof.step()
-        with _AllToAllInstruments() as seen:
+        with _CommInstruments() as seen:
             t0 = time.perf_counter()
             step()
             torch.cuda.synchronize()
@@ -1043,23 +1060,27 @@ def trace_step(step) -> dict:
     a2a_ms = of("sendrecv", "alltoall")
     host_ms = sum(seen.seconds.values()) * 1e3
     call_ms = sum(seen.call_seconds.values()) * 1e3
+    sendrecv_ms = sum(seen.sendrecv_seconds.values()) * 1e3
     return {"device_ms": device_us / 1e3, "all_to_all_ms": a2a_ms,
             "all_reduce_ms": of("allreduce"), "wall_ms": wall * 1e3,
             "all_to_all_share_of_device": a2a_ms * 1e3 / device_us if device_us else None,
             "all_to_all_share_of_wall": a2a_ms / (wall * 1e3),
             "all_to_all_host_ms": host_ms, "all_to_all_host_share_of_wall": host_ms / (wall * 1e3),
-            "all_to_all_call_ms": call_ms, "all_to_all_call_share_of_wall": call_ms / (wall * 1e3)}
+            "all_to_all_call_ms": call_ms, "all_to_all_call_share_of_wall": call_ms / (wall * 1e3),
+            "sendrecv_host_ms": sendrecv_ms,
+            "sendrecv_host_share_of_wall": sendrecv_ms / (wall * 1e3)}
 
 
 def _fit_rank(mode: dict, mesh_shape: tuple | None, lm_kw: dict, cfg_kw: dict, windows,
               lr: float | None, reference: str | None, trace: bool) -> dict:
     """One rank of `check_moe_ep` and `check_seq_parallel`: ``LMTrainer``
-    in ``mode`` (``moe=True``, or ``sequence_parallel="ulysses"`` on a
-    (data, seq) mesh of ``mesh_shape``), the LM built from seed 0
+    in ``mode`` (``moe=True``, or ``sequence_parallel="ring"`` or
+    ``"ulysses"`` on a (data, seq) mesh of ``mesh_shape``), the LM built
+    from seed 0
     (``sgd(lr)``, or AdamW when ``lr`` is None), fit on ``windows`` under
     TPU_DIST_FLASH=1 without TF32.  Returns its losses, seconds and
-    tokens/s an epoch, its all_to_all calls and host seconds (forward and
-    backward) and launch counts (set to 0 just before the fit, read just
+    tokens/s an epoch, its all_to_all and sendrecv calls and host seconds
+    (forward and backward) and launch counts (set to 0 just before the fit, read just
     after), its peak device memory, a digest of every parameter, with MoE
     layers the largest and the mean dropped fraction of their calls, and
     given ``reference`` (a file of parameters) each parameter's largest
@@ -1082,14 +1103,16 @@ def _fit_rank(mode: dict, mesh_shape: tuple | None, lm_kw: dict, cfg_kw: dict, w
     comm.barrier()
     _zero_launches()
     torch.cuda.reset_peak_memory_stats(device)
-    with _AllToAllInstruments() as seen:
+    with _CommInstruments() as seen:
         history = trainer.fit(windows)
     launches = _launches()
     out = {"losses": torch.tensor([s.mean_loss for s in history], dtype=torch.float64),
            "seconds": torch.tensor([s.seconds for s in history]),
            "tokens_per_sec": torch.tensor([s.tokens_per_sec for s in history]),
            "all_to_all_calls": seen.calls, "all_to_all_seconds": seen.seconds,
-           "all_to_all_call_seconds": seen.call_seconds, "launches": launches,
+           "all_to_all_call_seconds": seen.call_seconds,
+           "sendrecv_calls": seen.sendrecv_calls, "sendrecv_seconds": seen.sendrecv_seconds,
+           "launches": launches,
            "peak_bytes": torch.cuda.max_memory_allocated(device),
            "digests": {k: _digest(p.detach()) for k, p in lm.named_parameters()}}
     if seen.dropped:
@@ -1116,7 +1139,8 @@ def _check_fit(world: int, mode: dict, mesh_shape: tuple | None, lm_kw: dict, cf
     over Gloo, or one card each over NCCL): every rank must end with the
     same bits in every parameter and the same finite losses; with
     ``reference``, the parameters within `MOE_EP_TOL` of it.  Returns rank
-    0's numbers and every rank's all_to_all calls and seconds, launches,
+    0's numbers and every rank's all_to_all and sendrecv calls and seconds,
+    launches,
     peak memory and dropped fractions."""
     res = comm.spmd(_fit_rank, mode, mesh_shape, lm_kw, cfg_kw, windows, lr, reference, trace,
                     world=world, device="cuda", timeout=900)
@@ -1134,7 +1158,7 @@ def _check_fit(world: int, mode: dict, mesh_shape: tuple | None, lm_kw: dict, cf
            "tokens_per_sec": res["tokens_per_sec"][0].tolist(),
            **{key: {k: v.tolist() for k, v in res[key].items()}
               for key in ("all_to_all_calls", "all_to_all_seconds", "all_to_all_call_seconds",
-                          "launches")},
+                          "sendrecv_calls", "sendrecv_seconds", "launches")},
            "peak_gb": [b / 1e9 for b in res["peak_bytes"].tolist()],
            "parameters": len(digests)}
     for key in ("dropped", "dropped_mean", "max_param_diff"):
@@ -1193,10 +1217,10 @@ def check_seq_all_to_all(shape: tuple = (3, 4), seed: int = 0) -> dict:
 
 def check_seq_parallel(world: int, mesh_shape: tuple, lm_kw: dict, cfg_kw: dict, windows, *,
                        lr: float | None = None, reference: str | None = None,
-                       trace: bool = False) -> dict:
-    """``LMTrainer(sequence_parallel="ulysses")`` at ``world`` ranks on a
-    (data, seq) mesh of ``mesh_shape`` on the card (`_check_fit`)."""
-    return _check_fit(world, {"sequence_parallel": "ulysses"}, mesh_shape, lm_kw, cfg_kw,
+                       trace: bool = False, core: str = "ulysses") -> dict:
+    """``LMTrainer(sequence_parallel=core)`` at ``world`` ranks on a (data,
+    seq) mesh of ``mesh_shape`` on the card (`_check_fit`)."""
+    return _check_fit(world, {"sequence_parallel": core}, mesh_shape, lm_kw, cfg_kw,
                       windows, lr, reference, trace)
 
 
@@ -1243,3 +1267,253 @@ def check_moe_card_against_cpu(seed: int = 1) -> dict:
     return {"loss_card": loss_card, "loss_cpu": loss_cpu, "grad_max_abs_diff": grad_diff,
             "cached_max_abs_diff": float((cached - dense).abs().max()),
             "launches": launches}
+
+
+# ------------------------------------------------------------- ring attention
+
+# The flash ring against the dense ring and dense attention: float32 sums in
+# another order; in bf16 each flash block's output is rounded to bf16 before
+# the blocks are joined (the dense ring rounds once, at the end).
+RING_ATTENTION_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+                      torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+
+class _FlashForwards:
+    """While active, the ``causal`` flag of every flash forward call
+    (`flash_attention.flash_fwd`, which dispatches to the route's kernel),
+    in call order."""
+
+    def __enter__(self):
+        self.causal = []
+        self._fwd = fa.flash_fwd
+
+        def recording(*args, causal=False, window=None):
+            self.causal.append(causal)
+            return self._fwd(*args, causal=causal, window=window)
+
+        fa.flash_fwd = recording
+        return self
+
+    def __exit__(self, *exc):
+        fa.flash_fwd = self._fwd
+
+
+def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _ring_attention_case(shape: tuple, dtype: torch.dtype, causal: bool, seed: int,
+                         plain: bool, iters: int) -> dict:
+    """This rank's shard of q, k, v ``shape`` (the global sequence on axis
+    2, from ``seed``) through `ring_attention_flash` and `ring_attention`
+    with the gradients of a weighted sum, beside dense attention over the
+    gathered sequence (`flash_fwd_reference` in float32); the flash
+    ring's launches in its forward and in its backward, each forward
+    call's ``causal``; with ``plain`` the flash ring on CPU copies (its
+    plain blocks, Gloo); each ring's forward ms, from the host clock
+    around ``iters`` calls after a barrier."""
+    from tpu_dist_torch.parallel import ring_attention, ring_attention_flash
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    n, r = comm.world_size(), comm.rank()
+    b, h, S, d = shape
+    s_local = S // n
+    g = torch.Generator().manual_seed(seed)
+    full = [torch.randn(shape, generator=g).to(dtype) for _ in range(3)]
+    mine = [t[:, :, r * s_local:(r + 1) * s_local].to(device) for t in full]
+    w = torch.randn(b, h, s_local, d, generator=torch.Generator().manual_seed(seed + 1 + r))
+    w = w.to(device)
+
+    def run(core):
+        leaves = [t.clone().requires_grad_() for t in mine]
+        o = core(*leaves, causal=causal)
+        torch.cuda.synchronize()
+        forward = _launches()
+        (w * o.float()).sum().backward()
+        torch.cuda.synchronize()
+        return o.detach(), [t.grad for t in leaves], forward
+
+    torch.cuda.synchronize()
+    comm.barrier()
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    with _FlashForwards() as seen:
+        flash, flash_grads, forward = run(ring_attention_flash)
+    backward = {k: v - forward[k] for k, v in _launches().items()}
+    ring, ring_grads, _ = run(ring_attention)
+    peak = torch.cuda.max_memory_allocated(device)
+    out3, _ = fa.flash_fwd_reference(*(t.to(device).float().reshape(b * h, S, d) for t in full),
+                                     causal=causal)
+    dense = out3.reshape(shape)[:, :, r * s_local:(r + 1) * s_local]
+    tol = RING_ATTENTION_TOL[dtype]
+    out = {"route": fa.flash_route(dtype, d), "causal_calls": torch.tensor(seen.causal),
+           "forward_launches": forward, "backward_launches": backward,
+           "flash_vs_ring": _max_err(flash, ring), "flash_vs_dense": _max_err(flash, dense),
+           "ring_vs_dense": _max_err(ring, dense),
+           "close": [torch.allclose(flash.float(), ring.float(), **tol),
+                     torch.allclose(flash.float(), dense, **tol),
+                     torch.allclose(ring.float(), dense, **tol)],
+           "grads_equal": all(torch.equal(a, e) for a, e in zip(flash_grads, ring_grads)),
+           "grad_max_diff": max(_max_err(a, e) for a, e in zip(flash_grads, ring_grads)),
+           "grads_finite": all(bool(torch.isfinite(a).all()) for a in flash_grads),
+           "peak_bytes": peak}
+    del dense, out3, flash_grads, ring_grads
+    if plain:
+        with torch.no_grad():
+            cpu = ring_attention_flash(*(t.cpu() for t in mine), causal=causal)
+        out["flash_vs_plain"] = _max_err(flash.cpu(), cpu)
+        out["close"].append(torch.allclose(flash.cpu().float(), cpu.float(), **tol))
+    out["close"] = torch.tensor(out["close"])  # spmd stacks it: (world, comparisons)
+    with torch.no_grad():
+        for name, core in (("flash", ring_attention_flash), ("ring", ring_attention)):
+            core(*mine, causal=causal)
+            torch.cuda.synchronize()
+            comm.barrier()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                core(*mine, causal=causal)
+            torch.cuda.synchronize()
+            out[f"{name}_ms"] = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ring_lm_case(lm_kw: dict, batch: int, dtype: torch.dtype, seed: int) -> dict:
+    """``TransformerLM.apply_seq_parallel(attention="ring")`` in eval on this
+    rank's shard of ``batch`` windows of ``lm_kw["max_seq"]`` tokens, the
+    LM from seed 0 in ``dtype``: with ``flash=True`` (its launches counted
+    from 0, each forward call's ``causal``, its seconds) and ``flash=False``,
+    both against the dense `forward` of the whole windows at world 1
+    (TPU_DIST_FLASH=1: the flash kernels over the whole causal window);
+    the largest differences as shares of the largest dense logit."""
+    import os
+
+    from tpu_dist_torch import models
+
+    os.environ["TPU_DIST_FLASH"] = "1"
+    device = torch.device("cuda", torch.cuda.current_device())
+    n, r = comm.world_size(), comm.rank()
+    S = lm_kw["max_seq"]
+    s_local = S // n
+    lm = models.TransformerLM(**lm_kw, generator=torch.Generator().manual_seed(0))
+    lm = lm.to(device=device, dtype=dtype).eval()
+    tokens = models.synthetic_tokens(batch, S, lm_kw["vocab"], seed=seed).to(device)
+    local = tokens[:, r * s_local:(r + 1) * s_local]
+    with torch.no_grad():
+        dense = lm(tokens)[:, r * s_local:(r + 1) * s_local].float()
+        torch.cuda.synchronize()
+        comm.barrier()
+        _zero_launches()
+        t0 = time.perf_counter()
+        with _FlashForwards() as seen:
+            flash = lm.apply_seq_parallel(local, flash=True).float()
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launches()
+        ring = lm.apply_seq_parallel(local).float()
+    scale = float(dense.abs().max())
+    out = {"launches": launches, "causal_calls": torch.tensor(seen.causal),
+           "flash_seconds": seconds, "max_abs_logit": scale,
+           "flash_vs_ring": _max_err(flash, ring) / scale,
+           "flash_vs_dense": _max_err(flash, dense) / scale,
+           "ring_vs_dense": _max_err(ring, dense) / scale,
+           "finite": bool(torch.isfinite(flash).all() and torch.isfinite(ring).all())}
+    del lm, dense, flash, ring
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ring_generate_case(lm_kw: dict, prompt: torch.Tensor, steps: int) -> dict:
+    """Greedy `TransformerLM.generate_seq_parallel` of ``steps`` tokens
+    after this rank's shard of ``prompt``, the LM from seed 0 in float32,
+    and its seconds."""
+    from tpu_dist_torch import models
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    n, r = comm.world_size(), comm.rank()
+    s_local = prompt.shape[1] // n
+    lm = models.TransformerLM(**lm_kw, generator=torch.Generator().manual_seed(0)).to(device)
+    local = prompt[:, r * s_local:(r + 1) * s_local].to(device)
+    torch.cuda.synchronize()
+    comm.barrier()
+    t0 = time.perf_counter()
+    tokens = lm.generate_seq_parallel(local, steps)
+    torch.cuda.synchronize()
+    return {"tokens": tokens.cpu(), "seconds": time.perf_counter() - t0}
+
+
+def _seq_ring_rank(attention: list, lm: list, generate: tuple | None) -> dict:
+    """One rank of `check_ring_attention` / `check_seq_ring`: each case in
+    turn (every rank runs all of them, so no collective is left waiting);
+    the parent checks the results."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"attention": [_ring_attention_case(*case) for case in attention],
+           "lm": [_ring_lm_case(*case) for case in lm]}
+    if generate is not None:
+        out["generate"] = _ring_generate_case(*generate)
+    return out
+
+
+def _check_attention(res: dict, world: int, dtype: torch.dtype, causal: bool) -> None:
+    """A `_ring_attention_case`'s gates: every comparison within
+    `RING_ATTENTION_TOL`, the flash ring's gradient the dense ring's bits,
+    ``world`` forward launches a call of the route's forward (the diagonal
+    ``causal``, the rest not) and no other kernel, none in the backward."""
+    names = ["flash vs ring", "flash vs dense", "ring vs dense", "flash vs plain"]
+    for r in range(world):
+        for name, ok in zip(names, res["close"][r].tolist()):
+            _require(ok, f"rank {r}: {name} off by more than {RING_ATTENTION_TOL[dtype]}")
+    _require(bool(res["grads_equal"].all()), "the flash ring's gradient differs from the "
+             f"dense ring's by up to {res['grad_max_diff'].tolist()}")
+    _require(bool(res["grads_finite"].all()), "non-finite gradient")
+    forward = {k: v.tolist() for k, v in res["forward_launches"].items()}
+    want = {k: [world if k == f"flash_fwd_{res['route'][0]}" else 0] * world for k in forward}
+    _require(forward == want, f"forward launches {forward}, not {want}")
+    backward = {k: v.tolist() for k, v in res["backward_launches"].items()}
+    _require(backward == {k: [0] * world for k in backward}, f"backward launches {backward}")
+    calls = [causal] + [False] * (world - 1)
+    _require(res["causal_calls"].tolist() == [calls] * world,
+             f"forward calls' causal {res['causal_calls'].tolist()}, not {calls} a rank")
+
+
+def check_ring_attention(world: int, shape: tuple, dtype: torch.dtype, *, causal: bool = True,
+                         seed: int = 0, plain: bool = False, iters: int = 3) -> dict:
+    """`ring_attention_flash` at ``world`` ranks sharing the card (Gloo), q,
+    k, v ``shape`` split along the sequence: against `ring_attention` and
+    dense attention on the gathered sequence, with ``plain`` against its
+    plain blocks on the CPU (`_check_attention`'s gates).  Returns every
+    rank's differences, launches, times and peak memory."""
+    res = comm.spmd(_seq_ring_rank, [(shape, dtype, causal, seed, plain, iters)], [], None,
+                    world=world, device="cuda", timeout=600)["attention"][0]
+    _check_attention(res, world, dtype, causal)
+    return res
+
+
+def check_seq_ring(world: int, attention: list, lm: list, generate: tuple) -> dict:
+    """In one spawned world of ``world`` ranks sharing the card: each
+    ``attention`` case ``(shape, dtype, causal, seed)`` as
+    `check_ring_attention` checks it; each ``lm`` case ``(lm_kw, batch,
+    dtype, seed)``: the flash ring's launches (``depth * world`` of the
+    route's forward, the diagonal causal) and finite logits (the parent
+    holds the differences to its tolerance); ``generate`` ``(lm_kw,
+    prompt, steps)``: greedy tokens, the same on every rank.  Returns every
+    rank's results."""
+    res = comm.spmd(_seq_ring_rank, [(*case, False, 3) for case in attention], lm, generate,
+                    world=world, device="cuda", timeout=900)
+    for (_, dtype, causal, _), case in zip(attention, res["attention"]):
+        _check_attention(case, world, dtype, causal)
+    for (lm_kw, _, dtype, _), case in zip(lm, res["lm"]):
+        _require(bool(case["finite"].all()), "non-finite logits")
+        route = fa.flash_route(dtype, lm_kw["dim"] // lm_kw["heads"])
+        launches = {k: v.tolist() for k, v in case["launches"].items()}
+        depth = lm_kw["depth"]
+        want = {k: [depth * world if k == f"flash_fwd_{route}" else 0] * world
+                for k in launches}
+        _require(launches == want, f"apply_seq_parallel launches {launches}, not {want}")
+        calls = ([True] + [False] * (world - 1)) * depth
+        _require(case["causal_calls"].tolist() == [calls] * world,
+                 f"apply_seq_parallel forward calls' causal {case['causal_calls'].tolist()}")
+    tokens = res["generate"]["tokens"]
+    _require(all(torch.equal(tokens[r], tokens[0]) for r in range(world)),
+             "generate_seq_parallel gives the ranks different tokens")
+    return res

@@ -55,7 +55,6 @@ import torch.distributed as dist
 from tpu_dist_torch.comm import init as _init
 from tpu_dist_torch.comm.collectives import Group
 from tpu_dist_torch.ops import _build
-from tpu_dist_torch.parallel.ring import ring_all_reduce_chunked
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int32: 3}
 BLOCKS = 128  # the kernel's grid, the same for every call (at most 128)
@@ -433,6 +432,9 @@ def ring_all_reduce_pallas(x: torch.Tensor, group: Group | None = None) -> torch
     takes the chunked ring over the group.  Counts each launch in
     ``ring_all_reduce_pallas.launches``."""
     if x.device.type == "cpu":
+        # imported here: `parallel` imports `nn`, which imports `ops`
+        from tpu_dist_torch.parallel.ring import ring_all_reduce_chunked
+
         return ring_all_reduce_chunked(x, group)
     return _launch(x, group, None)
 

@@ -1,5 +1,5 @@
-"""`tpu_dist_torch.parallel` — data parallelism, the ring collectives and
-expert parallelism."""
+"""`tpu_dist_torch.parallel` — data parallelism, the ring collectives,
+expert parallelism and sequence parallelism (the K/V ring and Ulysses)."""
 
 from tpu_dist_torch.parallel.data_parallel import (
     accumulate_gradients,
@@ -20,6 +20,8 @@ from tpu_dist_torch.parallel.ring import (
     ring_all_reduce_chunked,
     ring_reduce_scatter,
 )
+from tpu_dist_torch.parallel.ring_attention import ring_attention, ring_attention_flash
+from tpu_dist_torch.parallel.ulysses import ulysses_attention
 
 __all__ = [
     "accumulate_gradients",
@@ -33,6 +35,9 @@ __all__ = [
     "ring_all_gather",
     "ring_all_reduce",
     "ring_all_reduce_chunked",
+    "ring_attention",
+    "ring_attention_flash",
     "ring_reduce_scatter",
     "stack_expert_params",
+    "ulysses_attention",
 ]

@@ -2,7 +2,7 @@
 of the TransformerLM over token windows.
 
 The port of `tpu_dist.train.LMTrainer` on its data-parallel, MoE and
-Ulysses paths:
+sequence-parallel paths:
 per step the dense next-token loss on the global batch (each rank its slice, over
 ``accum_steps`` microbatches), the gradients averaged over ranks with one
 all-reduce that also carries the loss, and AdamW (optionally under
@@ -29,12 +29,13 @@ It composes with ``accum_steps``, ``compute_dtype``, ``grad_clip``,
 ``nan_guard`` and ``loss_scale``, as in the JAX package.  Without ``moe``
 a model with experts trains data-parallel on its dense MoE evaluation.
 
-``sequence_parallel="ulysses"`` trains over a ``(data, seq)`` mesh
-(`comm.make_mesh`): rank ``(d, s)`` takes rows ``d`` of the global batch
-and columns ``s`` of the window (the JAX step's ``P(data, seq)`` batch
-spec), the loss is `lm_loss_seq_parallel` on
-`TransformerLM.apply_seq_parallel`'s logits over the ``seq`` group, and
-the gradients and the loss go through the same mean over every rank: the
+``sequence_parallel="ring"`` or ``"ulysses"`` trains over a ``(data,
+seq)`` mesh (`comm.make_mesh`): rank ``(d, s)`` takes rows ``d`` of the
+global batch and columns ``s`` of the window (the JAX step's ``P(data,
+seq)`` batch spec), the loss is `lm_loss_seq_parallel` on
+`TransformerLM.apply_seq_parallel`'s logits over the ``seq`` group (its
+attention core the K/V ring or the Ulysses all-to-all), and the
+gradients and the loss go through the same mean over every rank: the
 JAX step's pmean over ``data`` and over ``seq`` (``extra_grad_axes``), the
 parameters being replicated.  It composes with everything ``moe`` does.
 
@@ -42,9 +43,9 @@ Checkpoints hold ``{"params", "opt_state"}`` in the JAX package's layout
 (`interop`), so either package's `LMTrainer.restore` reads the other's.
 
 Not ported yet (ROADMAP queue 1): the fsdp, zero1, tensor and pipeline
-modes and the ring sequence-parallel core, compressed gradients, partition
-rules (item 10; the tensor and pipeline fields exist and refuse), in-flight
-steps and telemetry (item 11), ``generate`` (item 9).
+modes, compressed gradients, partition rules (item 10; the tensor and
+pipeline fields exist and refuse), in-flight steps and telemetry (item
+11), ``generate`` (item 9).
 """
 
 from __future__ import annotations
@@ -90,9 +91,10 @@ class LMTrainConfig:
     # Expert-parallel MoE: lm.moe_experts == world size, one expert per
     # rank (TransformerLM.loss_moe_ep).
     moe: bool = False
-    # Sequence-parallel training over the mesh's seq_axis: "ulysses"
-    # (all-to-all head resharding); "ring" is not ported yet.  seq_axis
-    # names the mesh axis, as the JAX package's config field does.
+    # Sequence-parallel training over the mesh's seq_axis: "ring" (K/V
+    # blocks rotate around the seq group) or "ulysses" (all-to-all head
+    # resharding).  seq_axis names the mesh axis, as the JAX package's
+    # config field does.
     sequence_parallel: str | None = None
     seq_axis: str = "seq"
     # The JAX package's other model-parallel modes, not ported yet: set,
@@ -129,17 +131,12 @@ def _check_modes(config: LMTrainConfig, lm: torch.nn.Module, mesh: Mesh) -> None
         raise NotImplementedError(
             f"LMTrainer {unported[0]}: not ported yet (ROADMAP queue 1, item 10, the "
             "parallel strategies); the port trains data-parallel, moe=True or "
-            "sequence_parallel='ulysses'"
+            "sequence_parallel='ring'|'ulysses'"
         )
     sp = config.sequence_parallel
     if sp is not None:
         if sp not in ("ring", "ulysses"):
             raise ValueError(f"sequence_parallel must be 'ring' or 'ulysses', got {sp!r}")
-        if sp == "ring":
-            raise NotImplementedError(
-                "LMTrainer sequence_parallel='ring': not ported yet (ROADMAP queue 1, item "
-                "10, entry 1a: ring attention); use 'ulysses'"
-            )
         if config.seq_axis not in mesh.shape:
             raise ValueError(
                 f"sequence_parallel needs a {config.seq_axis!r} mesh axis; mesh has "
